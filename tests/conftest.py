@@ -11,3 +11,8 @@ def smoke_mesh():
                     "set_mesh/AxisType; model tests require jax>=0.6")
     from repro.launch.mesh import make_smoke_mesh
     return make_smoke_mesh()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (and nvcc); skips without one")

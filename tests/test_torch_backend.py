@@ -1,0 +1,249 @@
+"""Differential conformance: the port's TorchBackend against JaxBackend.
+
+Both backends execute the same compiled TransferPlans (the reference
+conformance MATRIX: nine plan kinds x both staging modes) and must land
+the same bytes and report the same ExecReport fields — chunk and batch
+counts, stripes, peak staging, hop trace and the MB of every progress
+event.  The port runs on the CPU here (``device="cpu"``: plain PyTorch
+versions of the kernels); the reference runs its jnp arm.  The other
+tests twin the reference's own backend tests, plus the port's entry
+point and the carry-across of slab stores.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_backend_jax import MATRIX, SIZE_MB, make_engine  # noqa: E402
+
+from repro.core.backend_jax import JaxBackend  # noqa: E402
+from repro.core.backend_jax import synth_payload as ref_synth  # noqa: E402
+from repro.core.transfer import CUT_THROUGH, STORE_FORWARD  # noqa: E402
+from repro_torch.core import topology as ttopo  # noqa: E402
+from repro_torch.core.api import FAASTUBE, FaaSTube  # noqa: E402
+from repro_torch.core.backend_torch import (  # noqa: E402
+    TorchBackend,
+    load_reference_state,
+    nbytes_of,
+    synth_payload,
+)
+from repro_torch.core.linksim import LinkSim  # noqa: E402
+from repro_torch.core.pathfinder import PathFinder  # noqa: E402
+from repro_torch.core.pinned_buffer import CircularPinnedBuffer  # noqa: E402
+from repro_torch.core.transfer import TransferEngine  # noqa: E402
+
+#: the port's twin of each MATRIX topology builder
+PORT_TOPO = {"h2g": ttopo.dgx_v100, "g2h": ttopo.dgx_v100,
+             "g2g_direct": ttopo.dgx_v100, "g2g_striped": ttopo.dgx_v100,
+             "g2g_host": ttopo.dgx_v100, "spill": ttopo.dgx_v100,
+             "reload": ttopo.dgx_v100,
+             "internode": lambda: ttopo.cluster(2),
+             "h2h": lambda: ttopo.cluster(2)}
+
+
+def port_engine(topo_fn=ttopo.dgx_v100, **kw):
+    topo = topo_fn()
+    return TransferEngine(LinkSim(topo), PathFinder(topo),
+                          CircularPinnedBuffer(), topo, **kw)
+
+
+def cpu_backend(**kw):
+    return TorchBackend(device="cpu", **kw)
+
+
+def oracle(did, size_mb):
+    return synth_payload(did, nbytes_of(size_mb))
+
+
+def run_plan(eng, be, kind, src, dst, size_mb, did, **exec_kw):
+    plan = eng.compile(kind, "t", src, dst, size_mb, data_id=did)
+    return plan, be.execute(plan, **exec_kw)
+
+
+@pytest.mark.parametrize("staging", [CUT_THROUGH, STORE_FORWARD])
+@pytest.mark.parametrize("case", sorted(MATRIX))
+def test_matrix_matches_jax_backend(case, staging):
+    topo_fn, kind, src, dst, kw = MATRIX[case]
+    did = f"{case}-{staging}"
+    jplan = make_engine(topo_fn, staging=staging, **kw).compile(
+        kind, "t", src, dst, SIZE_MB, data_id=did)
+    jb = JaxBackend()
+    jrep = jb.execute(jplan)
+    tb = cpu_backend()
+    tplan, trep = run_plan(port_engine(PORT_TOPO[case], staging=staging,
+                                       **kw),
+                           tb, kind, src, dst, SIZE_MB, did)
+    assert [h.kind for h in tplan.hops] == [h.kind for h in jplan.hops]
+    for f in ("kind", "src", "dst", "size_mb", "staging", "n_chunks",
+              "n_batches", "stripes", "peak_staging_mb", "hop_trace"):
+        assert getattr(trep, f) == getattr(jrep, f), f
+    assert [mb for mb, _ in trep.events] == [mb for mb, _ in jrep.events]
+    for ep in (dst, src):
+        got = tb.read_object(did, ep)
+        np.testing.assert_array_equal(got, jb.read_object(did, ep))
+        np.testing.assert_array_equal(got, oracle(did, SIZE_MB))
+    assert tb.where(did) == jb.where(did)
+    assert all(r.in_flight_mb == 0.0 for r in tb.rings.values())
+
+
+def test_synth_payload_equals_reference():
+    for did, nbytes in (("x", 1), ("drv_in", 3 * 2 ** 20 + 5), ("", 77)):
+        np.testing.assert_array_equal(synth_payload(did, nbytes),
+                                      ref_synth(did, nbytes))
+
+
+def test_backend_without_cuda_raises(monkeypatch):
+    """The entry point asks for cuda and does not carry on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchBackend()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FaaSTube(ttopo.dgx_v100(), FAASTUBE, backend="torch")
+    assert cpu_backend().device == torch.device("cpu")
+
+
+def test_progress_on_trigger_batch_multiples():
+    eng = port_engine()
+    be = cpu_backend()
+    seen = []
+    _, rep = run_plan(eng, be, "h2g", "host", "gpu1", 32.0, "prog",
+                      on_progress=seen.append)
+    assert seen == [10.0, 20.0, 30.0, 32.0]
+    assert [mb for mb, _ in rep.events] == seen
+    seen2 = []
+    run_plan(eng, be, "h2g", "host", "gpu2", 4.0, "prog2",
+             on_progress=seen2.append)
+    assert seen2 == [4.0]
+
+
+@pytest.mark.parametrize("staging", [CUT_THROUGH, STORE_FORWARD])
+def test_staging_modes_observably_differ(staging):
+    eng = port_engine(lambda: ttopo.cluster(2), staging=staging)
+    be = cpu_backend()
+    did = f"obs-{staging}"
+    _, rep = run_plan(eng, be, "internode", "n0:gpu0", "n1:gpu1", 24.0,
+                      did)
+    np.testing.assert_array_equal(be.read_object(did, "n1:gpu1"),
+                                  oracle(did, 24.0))
+    if staging == STORE_FORWARD:
+        assert rep.peak_staging_mb >= 24.0
+        h0 = [i for i, t in enumerate(rep.hop_trace) if t.startswith("h0")]
+        h1 = [i for i, t in enumerate(rep.hop_trace) if t.startswith("h1")]
+        assert max(h0) < min(h1)
+    else:
+        assert rep.peak_staging_mb <= 10.0
+        b0 = [t for t in rep.hop_trace if t.startswith("b0:")]
+        assert b0[:3] == ["b0:g2h", "b0:net", "b0:h2g"]
+    assert all(r.in_flight_mb == 0.0 for r in be.rings.values())
+
+
+def test_zero_regenerations():
+    eng = port_engine()
+    be = cpu_backend()
+    for i, dev in enumerate(["host", "gpu0", "gpu2"]):
+        be.put_object(f"z{i}", dev, size_mb=6.0)
+
+    def boom(*a, **k):
+        raise AssertionError("backend regenerated a source object")
+
+    be.put_object = boom
+    for i, (kind, src, dst) in enumerate([("h2g", "host", "gpu1"),
+                                          ("g2g", "gpu0", "gpu1"),
+                                          ("g2h", "gpu2", "host")]):
+        did = f"z{i}"
+        plan, _ = run_plan(eng, be, kind, src, dst, 6.0, did)
+        np.testing.assert_array_equal(be.read_object(did, plan.dst),
+                                      oracle(did, 6.0))
+
+
+def test_facade_spill_reload_real_bytes():
+    cfg = dataclasses.replace(FAASTUBE, store_cap_mb=48.0, name="ft-small")
+    tube = FaaSTube(ttopo.dgx_v100(), cfg,
+                    backend=cpu_backend(store_mb=96.0, host_mb=256.0))
+    for i in range(4):
+        tube.store("prod", f"d{i}", 16.0, "gpu0", float(i))
+    tube.sim.run()
+    assert "host" in tube.backend.where("d0")
+    tube.fetch("cons", "d0", "gpu2", 100.0)
+    tube.sim.run()
+    np.testing.assert_array_equal(
+        tube.backend.read_object("d0", "gpu2"), oracle("d0", 16.0))
+
+
+def test_ring_windows_bounded_and_drained():
+    eng = port_engine()
+    be = cpu_backend()
+    for i in range(3):
+        run_plan(eng, be, "h2g", "host", f"gpu{i}", 32.0, f"r{i}")
+    ring = be.rings["host"]
+    assert ring.stalls == 0
+    assert ring.peak_mb <= ring.size_mb
+    assert ring.in_flight_mb == 0.0
+    assert not ring.buf.is_pinned()          # pinned only on a CUDA backend
+
+
+def test_put_object_replaces_stale_copy():
+    be = cpu_backend()
+    be.put_object("u", "gpu0", size_mb=4.0)
+    fresh = np.arange(nbytes_of(4.0), dtype=np.uint8) % 251
+    be.put_object("u", "gpu0", payload=fresh)
+    np.testing.assert_array_equal(be.read_object("u", "gpu0"), fresh)
+    assert be.store_for("gpu0").used_mb == 4.0
+
+
+def test_store_grows_past_its_start_and_keeps_bytes():
+    be = cpu_backend(store_mb=256.0)
+    be.put_object("a", "gpu0", size_mb=60.0)
+    st = be.store_for("gpu0")
+    first = st.slabs
+    be.put_object("b", "gpu0", size_mb=100.0)
+    assert st.slabs is not first and st.slabs.shape[0] >= 81
+    np.testing.assert_array_equal(be.read_object("a", "gpu0"),
+                                  oracle("a", 60.0))
+    np.testing.assert_array_equal(be.read_object("b", "gpu0"),
+                                  oracle("b", 100.0))
+
+
+def _snapshot(jb: JaxBackend) -> dict:
+    return {ep: {"slabs": np.asarray(st.slabs),
+                 "objects": {d: (o.nbytes, o.rows)
+                             for d, o in st.objects.items()}}
+            for ep, st in jb.stores.items()}
+
+
+def test_load_reference_state_round_trip():
+    """Slab stores carried across from a populated JaxBackend: same rows,
+    same bytes; then the same plans on both land the same bytes."""
+    jb = JaxBackend()
+    for did, ep, mb in (("a", "gpu0", 11.0), ("b", "gpu0", 3.0),
+                        ("c", "host", 7.0), ("d", "gpu2", 70.0)):
+        jb.put_object(did, ep, size_mb=mb)
+    tb = cpu_backend()
+    load_reference_state(tb, _snapshot(jb))
+    for ep, st in jb.stores.items():
+        tst = tb.stores[ep]
+        assert {d: o.rows for d, o in tst.objects.items()} == \
+            {d: o.rows for d, o in st.objects.items()}
+        for did in st.objects:
+            np.testing.assert_array_equal(tb.read_object(did, ep),
+                                          jb.read_object(did, ep))
+    jeng, teng = make_engine(), port_engine()
+    for kind, src, dst, did, mb in (("g2g", "gpu0", "gpu1", "a", 11.0),
+                                    ("h2g", "host", "gpu3", "c", 7.0),
+                                    ("g2h", "gpu2", "host", "d", 70.0)):
+        jb.execute(jeng.compile(kind, "t", src, dst, mb, data_id=did))
+        run_plan(teng, tb, kind, src, dst, mb, did)
+        np.testing.assert_array_equal(tb.read_object(did, dst),
+                                      jb.read_object(did, dst))
+
+
+def test_load_reference_state_refuses_fragmented_pool():
+    jb = JaxBackend()
+    for did in ("a", "b", "c"):
+        jb.put_object(did, "gpu0", size_mb=4.0)
+    jb.drop_object("b", "gpu0")        # a hole the replay cannot make
+    jb.put_object("e", "gpu0", size_mb=8.0)
+    with pytest.raises(ValueError, match="cannot reproduce"):
+        load_reference_state(cpu_backend(), _snapshot(jb))

@@ -1,0 +1,139 @@
+"""The port on an NVIDIA GPU: the hand-written CUDA kernels against their
+plain versions, and the CUDA backend against the same backend on the CPU.
+
+Every test needs a card and ``nvcc``, carries the ``cuda`` marker and
+skips without one.  The file imports neither jax nor the JAX package, so
+it runs on a machine that has only PyTorch, without the repo's
+conftest (which imports jax):
+
+    PYTHONPATH=src python -m pytest -q --noconftest -o markers=cuda -m cuda tests/test_torch_on_card.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import topology as ttopo  # noqa: E402
+from repro_torch.core.backend_torch import (  # noqa: E402
+    TorchBackend,
+    nbytes_of,
+    synth_payload,
+)
+from repro_torch.core.linksim import LinkSim  # noqa: E402
+from repro_torch.core.pathfinder import PathFinder  # noqa: E402
+from repro_torch.core.pinned_buffer import CircularPinnedBuffer  # noqa: E402
+from repro_torch.core.transfer import (  # noqa: E402
+    CUT_THROUGH,
+    STORE_FORWARD,
+    TransferEngine,
+)
+from repro_torch.kernels.chunked_copy import kernel as K  # noqa: E402
+from repro_torch.kernels.chunked_copy import pipeline as tpipe  # noqa: E402
+from repro_torch.kernels.chunked_copy.ref import (  # noqa: E402
+    gather_chunks_ref,
+    scatter_chunks_ref,
+)
+
+DTYPES = [torch.float32, torch.bfloat16, torch.int8, torch.uint8]
+
+# the reference conformance MATRIX (tests/test_backend_jax.py) on the
+# port's topologies: case -> (topo builder, kind, src, dst, engine kwargs)
+MATRIX = {
+    "h2g": (ttopo.dgx_v100, "h2g", "host", "gpu1", {}),
+    "g2h": (ttopo.dgx_v100, "g2h", "gpu1", "host", {}),
+    "g2g_direct": (ttopo.dgx_v100, "g2g", "gpu0", "gpu1", {"g2g": "direct"}),
+    "g2g_striped": (ttopo.dgx_v100, "g2g", "gpu0", "gpu5",
+                    {"g2g": "multipath"}),
+    "g2g_host": (ttopo.dgx_v100, "g2g", "gpu0", "gpu4", {"g2g": "host"}),
+    "internode": (lambda: ttopo.cluster(2), "internode", "n0:gpu0",
+                  "n1:gpu1", {}),
+    "spill": (ttopo.dgx_v100, "spill", "gpu1", "host", {}),
+    "reload": (ttopo.dgx_v100, "reload", "host", "gpu3", {}),
+    "h2h": (lambda: ttopo.cluster(2), "h2h", "n0:host", "n1:host", {}),
+}
+SIZE_MB = 23.0          # 12 chunks, ragged 1 MB tail, 3 trigger batches
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rows(n, c, dtype, gen):
+    if dtype.is_floating_point:
+        return torch.randn((n, c), generator=gen).to(dtype)
+    lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
+    return torch.randint(lo, hi, (n, c), generator=gen).to(dtype)
+
+
+def _same_bytes(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8).cpu(),
+        b.contiguous().view(torch.uint8).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernels_match_plain_on_card(cuda_device, dtype):
+    gen = torch.Generator().manual_seed(23)
+    rng = np.random.default_rng(23)
+    for n, c, m in ((96, 128, 5), (96, 256, 64), (32, 100, 7), (16, 64, 0)):
+        src = _rows(n, c, dtype, gen).to(cuda_device)
+        ids = rng.permutation(n)[:m].astype(np.int32)      # out of order
+        idx = torch.from_numpy(ids.astype(np.int64)).to(cuda_device)
+        got = K.gather_chunks(src, ids)
+        assert _same_bytes(got, gather_chunks_ref(src, idx))
+        dst = _rows(n, c, dtype, gen).to(cuda_device)
+        want = scatter_chunks_ref(dst.clone(), got, idx)
+        assert K.scatter_chunks(dst, got, ids) is dst
+        assert _same_bytes(dst, want)
+
+
+@pytest.mark.cuda
+def test_pipelined_copy_on_card(cuda_device):
+    src = torch.randint(0, 256, (9, 2 ** 21), dtype=torch.uint8,
+                        device=cuda_device)
+    dst = torch.zeros_like(src)
+    events = []
+    before = K.gather_chunks.launches, K.scatter_chunks.launches
+    tpipe.copy_slabs_pipelined(src, list(range(7)), dst,
+                               [8, 6, 4, 2, 0, 1, 3], on_batch=events.append)
+    assert events == [5, 7]
+    assert (K.gather_chunks.launches, K.scatter_chunks.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert torch.equal(dst[[8, 6, 4, 2, 0, 1, 3]], src[:7])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staging", [CUT_THROUGH, STORE_FORWARD])
+@pytest.mark.parametrize("case", sorted(MATRIX))
+def test_backend_on_card_matches_cpu(cuda_device, case, staging):
+    """Each plan kind moves the same bytes on the card as on the CPU and
+    reports the same chunks, batches, stripes, staging, hops and
+    progress; device stores sit on the card, host stores are pinned."""
+    topo_fn, kind, src, dst, kw = MATRIX[case]
+    did = f"{case}-{staging}"
+    reps = []
+    for device in ("cuda", "cpu"):
+        topo = topo_fn()
+        eng = TransferEngine(LinkSim(topo), PathFinder(topo),
+                             CircularPinnedBuffer(), topo, staging=staging,
+                             **kw)
+        be = TorchBackend(device=device)
+        rep = be.execute(eng.compile(kind, "t", src, dst, SIZE_MB,
+                                     data_id=did))
+        for ep in (src, dst):
+            np.testing.assert_array_equal(
+                be.read_object(did, ep), synth_payload(did, nbytes_of(SIZE_MB)))
+        reps.append(rep)
+        if device == "cuda":
+            for st in be.stores.values():
+                assert st.slabs.is_cuda if st.device else st.slabs.is_pinned()
+            assert all(r.buf.is_pinned() for r in be.rings.values())
+    card, cpu = reps
+    for f in ("n_chunks", "n_batches", "stripes", "peak_staging_mb",
+              "hop_trace"):
+        assert getattr(card, f) == getattr(cpu, f), f
+    assert [mb for mb, _ in card.events] == [mb for mb, _ in cpu.events]
