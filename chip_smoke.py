@@ -4,25 +4,38 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 It imports the port (``src/repro_torch``) only, builds the hand-written
-CUDA kernels from the checkout's sources, and runs six phases:
+CUDA kernels from the checkout's sources, and runs nine phases:
 
 1. environment: torch / CUDA versions, the card's name and power limit;
-2. build: ``nvcc`` for sm_90a, with the build seconds;
-3. kernels against their plain versions on the card, byte for byte, and
-   their times at the main path's shapes beside their bound;
+2. build: one ``nvcc`` for sm_90a per source, all started together;
+3. the chunked-copy kernels against their plain versions on the card,
+   byte for byte, and their times at the main path's shapes beside their
+   bound;
 4. the facade ``FaaSTube(dgx_v100(), FAASTUBE, backend="torch")`` at the
    paper's object sizes (the DRIVING and TRAFFIC workflows' edges), with
    its simulated trace held against a run without a backend;
 5. every plan kind x both staging modes at 128 MB through
    ``TransferEngine.compile`` and ``TorchBackend.execute``;
-6. spill and reload of 128 MB objects at the default 1024 MB store cap.
+6. spill and reload of 128 MB objects at the default 1024 MB store cap;
+7. the attention kernels against their plain versions on the card, at
+   MiniCPM-2B's shapes and at odd ones, and their times beside their
+   bound, their plain versions' and the library call's;
+8. the serving path, reduced, in f32: ``Engine.generate`` for MiniCPM-2B
+   and Gemma3-27B (the sliding window) on the card against the same on
+   the CPU, with the same weights;
+9. the serving path at full width: ``Engine(minicpm-2b)`` in bf16 on the
+   card, 8 requests of 1024 prompt tokens, 32 new tokens each; then the
+   paged kernel over layer 0's KV cache cut into shuffled 128-token
+   pages, against the engine's decode attention on the contiguous cache.
 
-The kernels' launch counters are set to 0 just before phase 4 and read
-after phase 6; the reads that check the landed bytes are kept out of
-them.  Any failed check raises and the script exits nonzero.
-The second-to-last line is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the port
-beside it, the script exits nonzero and prints no result.
+The data plane (phases 4-6) and the serving path (phase 9) are the main
+paths: the launch counters are set to 0 just before each and read just
+after it; the reads that check landed bytes are kept out of the counts.
+Float32 matrix products stay in full f32 (TF32 off).  Any failed check
+raises and the script exits nonzero.  The second-to-last line is
+``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
+Without CUDA, or without the port beside it, the script exits nonzero
+and prints no result.
 """
 from __future__ import annotations
 
@@ -375,6 +388,308 @@ def spill_reload(backend_arg, check_bytes):
     return tube, spilled
 
 
+# ------------------------------------------------------------ phase 7 ---
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for the
+#: attention kernels' operation bound
+BF16_FLOPS_PER_S = 989e12
+#: tolerances of tests/test_kernels.py, by dtype name
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+PAGED_TOL = {"float32": 5e-5, "bfloat16": 3e-2}
+# (B, Hq, Hkv, Lq, Lkv, D, causal, window): MiniCPM-2B's prefill, a
+# ragged length, GQA with a window, Lkv > Lq, the reduced configs' D=16,
+# and rows that see no key (Lkv < Lq under a window)
+FLASH_CASES = [(8, 36, 36, 1024, 1024, 64, True, 0),
+               (8, 36, 36, 1000, 1000, 64, True, 0),
+               (2, 8, 2, 512, 512, 128, True, 64),
+               (2, 8, 2, 384, 640, 128, True, 0),
+               (2, 4, 2, 16, 16, 16, True, 8),
+               (1, 4, 2, 100, 70, 32, True, 5)]
+# (B, Hkv, group, D, page, NP, P): MiniCPM-2B's decode over 8 pages of 128
+# tokens, GQA group 4 at D=128, and the reduced configs' D=16
+PAGED_CASES = [(8, 36, 1, 64, 128, 8, 48),
+               (4, 8, 4, 128, 128, 4, 12),
+               (2, 2, 2, 16, 8, 5, 7)]
+
+
+def _rand(shape, dtype, gen):
+    import torch
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _agree(got, want, tol) -> bool:
+    import torch
+    return bool(torch.isfinite(got).all()) and torch.allclose(
+        got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def attention_cases() -> dict:
+    """Both attention kernels against their plain versions at every case,
+    f32 and bf16.  Returns the largest absolute difference per kernel and
+    dtype."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.paged_attention import kernel as PK
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(CASE_SEED)
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).removeprefix("torch.")
+        for B, Hq, Hkv, Lq, Lkv, D, causal, window in FLASH_CASES:
+            q = _rand((B, Hq, Lq, D), dt, gen)
+            k = _rand((B, Hkv, Lkv, D), dt, gen)
+            v = _rand((B, Hkv, Lkv, D), dt, gen)
+            got = FK.flash_attention(q, k, v, causal=causal, window=window)
+            want = attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            case = (B, Hq, Hkv, Lq, Lkv, D, causal, window, name)
+            check(_agree(got, want, FLASH_TOL[name]),
+                  f"flash_attention != plain at {case}: "
+                  f"{_abs_err(got, want)}")
+            key = ("flash_attention", name)
+            worst[key] = max(worst.get(key, 0.0), _abs_err(got, want))
+        for B, Hkv, G, D, page, NP, P in PAGED_CASES:
+            q = _rand((B, Hkv * G, D), dt, gen)
+            kp = _rand((P, page, Hkv, D), dt, gen)
+            vp = _rand((P, page, Hkv, D), dt, gen)
+            # fewer physical pages than table entries: ids repeat
+            table = torch.randint(0, P, (B, NP), generator=gen, device="cuda",
+                                  dtype=torch.int32)
+            lens = torch.randint(1, NP * page + 1, (B,), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+            lens[0] = NP * page
+            lens[-1] = 0                       # no live position
+            got = PK.paged_attention(q, kp, vp, table, lens)
+            want = paged_attention_ref(q, kp, vp, table, lens)
+            torch.cuda.synchronize()
+            case = (B, Hkv, G, D, page, NP, P, name)
+            check(_agree(got, want, PAGED_TOL[name]),
+                  f"paged_attention != plain at {case}: "
+                  f"{_abs_err(got, want)}")
+            key = ("paged_attention", name)
+            worst[key] = max(worst.get(key, 0.0), _abs_err(got, want))
+    return worst
+
+
+def flash_work(B, Hq, Hkv, Lq, Lkv, D, causal, window, itemsize):
+    """(bytes, flops) the function needs: q, k, v read once and o written
+    once; 4*D flops for each (query, key) pair that the masks keep."""
+    i = np.arange(Lq)
+    hi = np.minimum(i, Lkv - 1) if causal else np.full(Lq, Lkv - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Lq, int)
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    nbytes = (2 * B * Hq * Lq * D + 2 * B * Hkv * Lkv * D) * itemsize
+    return nbytes, 4 * B * Hq * D * pairs
+
+
+def paged_work(q, k_pages, table, lens):
+    """(bytes, flops) the function needs for this table and these
+    lengths: each physical page a live position reads, K and V, once;
+    q read and o written once; 4*D flops per (query head, live position)."""
+    B, Hq, D = q.shape
+    P, page, Hkv, _ = k_pages.shape
+    tab = table.cpu().numpy()
+    lens = lens.cpu().numpy()
+    pages, live = set(), 0
+    for b in range(B):
+        n = int(min(max(lens[b], 0), tab.shape[1] * page))
+        live += n
+        pages.update(int(x) for x in tab[b, :-(-n // page)])  # ceil(n/page)
+    nbytes = (2 * len(pages) * page * Hkv * D + 2 * B * Hq * D) \
+        * q.element_size() + table.numel() * 4 + B * 4
+    return nbytes, 4 * Hq * D * live
+
+
+def attention_times() -> dict:
+    """Device times at MiniCPM-2B's shapes in bf16 (CUDA graph replay,
+    CUDA events), beside the bound, the plain version and the library
+    call (SDPA for flash; paged attention has no single PyTorch call)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.paged_attention import kernel as PK
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(CASE_SEED + 1)
+    bf = torch.bfloat16
+    B, H, L, D = 8, 36, 1024, 64
+    q, k, v = (_rand((B, H, L, D), bf, gen) for _ in range(3))
+    res = {}
+    nbytes, flops = flash_work(B, H, H, L, L, D, True, 0, 2)
+    res["flash_attention"] = {
+        "ms": device_ms([lambda: FK.flash_attention(q, k, v, causal=True)] * 2),
+        "plain_ms": device_ms([lambda: attention_ref(q, k, v, causal=True)]),
+        "library_ms": device_ms([lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)] * 2),
+        "bytes": nbytes, "flops": flops,
+        "shape": f"B={B} Hq=Hkv={H} Lq=Lkv={L} D={D} causal bf16"}
+    page, NP = 128, L // 128
+    kp, vp = (_rand((B * NP, page, H, D), bf, gen) for _ in range(2))
+    table = torch.randperm(B * NP, device="cuda", generator=gen) \
+        .to(torch.int32).view(B, NP)
+    lens = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    qd = _rand((B, H, D), bf, gen)
+    nbytes, flops = paged_work(qd, kp, table, lens)
+    res["paged_attention"] = {
+        "ms": device_ms([lambda: PK.paged_attention(qd, kp, vp, table,
+                                                     lens)] * 4),
+        "plain_ms": device_ms([lambda: paged_attention_ref(
+            qd, kp, vp, table, lens)]),
+        "library_ms": None,
+        "bytes": nbytes, "flops": flops,
+        "shape": f"B={B} Hq=Hkv={H} D={D} {NP} shuffled pages of {page} "
+                 "tokens, seq_len 1024, bf16"}
+    for r in res.values():
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / BF16_FLOPS_PER_S * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return res
+
+
+# ------------------------------------------------------------ phase 8 ---
+#: reduced f32 prefill logits, card (kernels) against CPU (plain
+#: versions), same weights: summation order only, logits of order 3
+REDUCED_TOL = 1e-4
+
+
+def reduced_serving(say) -> float:
+    """``Engine.generate`` on reduced f32 MiniCPM-2B and Gemma3-27B, on
+    the card and on the CPU with the same weights (made on the CPU, then
+    copied): prefill logits within REDUCED_TOL, greedy tokens equal."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.serving.engine import Engine
+    worst = 0.0
+    for arch in ("minicpm-2b", "gemma3-27b"):
+        cfg = dataclasses.replace(get_arch(arch).reduced(), cache_dtype="f32")
+        host = PM.tree_map(lambda t: t.float(),
+                           M.init_params(cfg, CASE_SEED, "cpu"))
+        card = PM.tree_map(lambda t: t.to("cuda"), host)
+        toks = torch.from_numpy(np.random.default_rng(CASE_SEED).integers(
+            0, cfg.vocab_size, (2, 16), dtype=np.int32))
+        shape = ShapeSpec("serve", 24, 2, "decode")
+        runs = {}
+        for device, params in (("cpu", host), ("cuda", card)):
+            before = FK.flash_attention.launches
+            eng = Engine(cfg, shape, params, device=device)
+            logits, _ = eng.prefill({"tokens": toks})
+            out, _ = eng.generate({"tokens": toks}, max_new_tokens=8)
+            runs[device] = (logits.cpu(), out.cpu(),
+                            FK.flash_attention.launches - before)
+        err = _abs_err(runs["cuda"][0], runs["cpu"][0])
+        check(err <= REDUCED_TOL,
+              f"{arch} reduced: prefill logits differ by {err}")
+        check(torch.equal(runs["cuda"][1], runs["cpu"][1]),
+              f"{arch} reduced: greedy tokens differ")
+        check(runs["cpu"][2] == 0 and runs["cuda"][2] == 2 * cfg.n_layers,
+              f"{arch} reduced: flash launches {runs['cpu'][2]} on the CPU, "
+              f"{runs['cuda'][2]} on the card")
+        worst = max(worst, err)
+        say(f"  {arch} reduced f32 ({cfg.n_layers} layers): prefill logits "
+            f"max_abs_err {err:.3g}, 8 greedy tokens equal, "
+            f"{runs['cuda'][2]} flash launches on the card")
+    return worst
+
+
+# ------------------------------------------------------------ phase 9 ---
+FULL_BATCH, FULL_PROMPT, FULL_NEW = 8, 1024, 32
+
+
+def full_width(say) -> dict:
+    """``Engine(minicpm-2b)`` at full width in bf16 on the card, through
+    ``generate``; prefill and every decode step timed on the host clock
+    after a device synchronise.  Then the paged kernel over layer 0's
+    prefill cache in shuffled pages, against ``decode_attention``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.serving.engine import Engine
+    cfg = get_arch("minicpm-2b")
+    B, L, new = FULL_BATCH, FULL_PROMPT, FULL_NEW
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, CASE_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = Engine(cfg, ShapeSpec("serve", L + new, B, "decode"), params)
+    toks = torch.from_numpy(np.random.default_rng(CASE_SEED).integers(
+        0, cfg.vocab_size, (B, L), dtype=np.int32))
+    times = {"prefill": [], "decode": []}
+    finite = []
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = fn(*args)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t)
+            finite.append(torch.isfinite(logits).all())
+            return logits, caches
+        return run
+
+    eng.prefill = timed("prefill", eng.prefill)
+    eng.decode = timed("decode", eng.decode)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, caches = eng.generate({"tokens": toks}, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(out.shape) == (B, new) and out.dtype == torch.int32,
+          f"full width: tokens {tuple(out.shape)} {out.dtype}")
+    check(bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+          "full width: token ids out of range")
+    check(len(finite) == new and all(bool(f) for f in finite),
+          "full width: non-finite logits")
+    # the paged kernel over the engine's own cache: layer 0's prefill K/V,
+    # cut into 128-token pages stored in a shuffled physical order
+    H, D, page = cfg.n_kv_heads, cfg.resolved_head_dim, 128
+    k0 = caches["units"][0]["k"][0, 0, :, :, :L]          # (B, H, L, D)
+    v0 = caches["units"][0]["v"][0, 0, :, :, :L]
+    n = B * (L // page)
+    gen = torch.Generator(device="cuda").manual_seed(CASE_SEED + 9)
+    perm = torch.randperm(n, device="cuda", generator=gen)
+    kp = k0.permute(0, 2, 1, 3).reshape(n, page, H, D)[perm].contiguous()
+    vp = v0.permute(0, 2, 1, 3).reshape(n, page, H, D)[perm].contiguous()
+    table = torch.argsort(perm).to(torch.int32).view(B, L // page)
+    lens = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    q = _rand((B, cfg.n_heads, D), torch.bfloat16, gen)
+    got = paged_ops.attention(q, kp, vp, table, lens)
+    want = decode_attention(q[:, :, None], k0, v0, L - 1)[:, :, 0]
+    torch.cuda.synchronize()
+    paged_err = _abs_err(got, want)
+    check(_agree(got, want, PAGED_TOL["bfloat16"]),
+          f"paged_attention over the engine's cache != decode_attention: "
+          f"{paged_err}")
+    dec = sorted(times["decode"])
+    res = {"params": PM.count_params(M.model_specs(cfg)),
+           "init_s": init_s, "prefill_ms": times["prefill"][0] * 1e3,
+           "decode_ms_median": dec[len(dec) // 2] * 1e3,
+           "decode_ms_mean": sum(dec) / len(dec) * 1e3,
+           "decode_tok_s": B * len(dec) / sum(dec),
+           "generate_s": wall, "tok_s": B * new / wall,
+           "peak_gb": peak / 1e9, "paged_err": paged_err}
+    say(f"  minicpm-2b full width bf16: {res['params'] / 1e9:.3f} B params "
+        f"(init {init_s:.2f} s), {B} x {L} prompt tokens + {new} new: "
+        f"prefill {res['prefill_ms']:.2f} ms, decode step median "
+        f"{res['decode_ms_median']:.3f} ms (mean {res['decode_ms_mean']:.3f}),"
+        f" {res['decode_tok_s']:.1f} decode tok/s, generate {wall:.3f} s = "
+        f"{res['tok_s']:.1f} tok/s, peak {res['peak_gb']:.2f} GB")
+    say(f"  paged_attention over layer 0's cache in {n} shuffled pages: "
+        f"max_abs_err {paged_err:.3g} against decode_attention (tol 3e-2)")
+    return res
+
+
 # --------------------------------------------------------------- main ---
 def main() -> int:
     import torch
@@ -386,9 +701,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False     # f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.core.backend_torch import (
         TorchBackend, nbytes_of, synth_payload)
+    from repro_torch.kernels import _build
     from repro_torch.kernels.chunked_copy import kernel as K
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.paged_attention import kernel as PK
 
     say = lambda *a: print(*a, flush=True)          # noqa: E731
     card = smi()
@@ -398,11 +718,17 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
     say(card)
 
-    lib, build_s = K.build()
-    regs = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-            .splitlines() if "registers" in ln]
-    say(f"[2] built {lib.relative_to(ROOT)} in {build_s:.2f} s; {regs}")
-    K.load_library()
+    t0 = time.perf_counter()
+    built = _build.build_all([K.SOURCE, FK.SOURCE, PK.SOURCE])
+    say(f"[2] nvcc for sm_90a, {len(built)} sources in parallel: "
+        f"{time.perf_counter() - t0:.2f} s wall")
+    for src, secs in built.items():
+        lib = _build.library_path(src)
+        regs = [ln.strip() for ln in lib.with_suffix(".log").read_text()
+                .splitlines() if "registers" in ln or "spill" in ln]
+        say(f"  {lib.relative_to(ROOT)}: {secs:.2f} s; {regs}")
+    for mod in (K, FK, PK):
+        mod.load_library()
 
     worst = kernel_cases("cuda")
     say(f"[3] kernels byte-equal to their plain versions "
@@ -488,8 +814,51 @@ def main() -> int:
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
 
+    t0 = time.perf_counter()
+    attn_err = attention_cases()
+    say(f"[7] attention kernels match their plain versions at "
+        f"{len(FLASH_CASES)} flash and {len(PAGED_CASES)} paged shapes, "
+        f"f32 and bf16; max_abs_err "
+        f"{ {f'{k[0]}/{k[1]}': v for k, v in attn_err.items()} }")
+    attn = attention_times()
+    for name, r in attn.items():
+        lib_ms = "-" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+        say(f"  {name} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
+            f"{r['plain_ms']:.5f} ms, library {lib_ms} ms, bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} B at "
+            f"3.35 TB/s, {r['flops']} flop at 989 TFLOP/s), "
+            f"{r['bound_ms'] / r['ms']:.3f} of the bound")
+    say(f"  {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    say("[8] Engine.generate, reduced f32, card against CPU")
+    reduced_serving(say)
+    say(f"  {time.perf_counter() - t0:.2f} s")
+
+    # ---- the serving path, counted from here ----------------------------
+    t0 = time.perf_counter()
+    say("[9] Engine(minicpm-2b) at full width on the card")
+    K.gather_chunks.launches = K.scatter_chunks.launches = 0
+    FK.flash_attention.launches = PK.paged_attention.launches = 0
+    full = full_width(say)
+    serving = {"flash_attention": FK.flash_attention.launches,
+               "paged_attention": PK.paged_attention.launches}
+    say(f"  launches on the serving path: {serving}, chunked copy "
+        f"{K.gather_chunks.launches} + {K.scatter_chunks.launches}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(serving["flash_attention"] == 40,
+          f"flash_attention launched {serving['flash_attention']} times in "
+          "the full-width generate, not once per layer (40)")
+    check(serving["paged_attention"] > 0,
+          "paged_attention never launched on the serving path")
+    launches.update(serving)
+
     replaces = {"gather_chunks": "src/repro/kernels/chunked_copy/kernel.py:37",
-                "scatter_chunks": "src/repro/kernels/chunked_copy/kernel.py:59"}
+                "scatter_chunks": "src/repro/kernels/chunked_copy/kernel.py:59",
+                "flash_attention":
+                    "src/repro/kernels/flash_attention/kernel.py:65",
+                "paged_attention":
+                    "src/repro/kernels/paged_attention/kernel.py:64"}
     kernels = []
     for name in ("gather_chunks", "scatter_chunks"):
         r5, r64 = times[5][name], times[64][name]
@@ -504,6 +873,19 @@ def main() -> int:
             "library_ms": r5["library_ms"], "call_ms": r5["call_ms"],
             "m64": {k: r64[k] for k in ("ms", "call_ms", "plain_ms",
                                         "library_ms", "bound_ms")}})
+    for name in ("flash_attention", "paged_attention"):
+        r = attn[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": max(attn_err[(name, "float32")],
+                               attn_err[(name, "bfloat16")]),
+            "max_abs_err_f32": attn_err[(name, "float32")],
+            "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    say(json.dumps({"serving": full}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

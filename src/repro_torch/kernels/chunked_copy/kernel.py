@@ -2,10 +2,7 @@
 
 The kernels live in ``src/repro_torch/csrc/chunked_copy.cu`` (see the
 note there for what each replaces and what bounds it).  They are built
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface at first use, under ``build/kernels/`` in the checkout, keyed
-by a hash of the source and the flags, so a fresh checkout builds
-everything it needs.
+by ``kernels/_build.py`` at first use.
 
 Both kernels copy bytes: a tensor of any dtype is viewed as uint8 rows
 of ``C * itemsize`` bytes.  Ids come from the host; the wrappers check
@@ -16,76 +13,25 @@ Each wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
-_PKG = Path(__file__).resolve().parents[2]          # src/repro_torch
-SOURCE = _PKG / "csrc" / "chunked_copy.cu"
-BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import BUILD_DIR, NVCC_FLAGS  # noqa: F401
+
+SOURCE = "chunked_copy.cu"
+_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_longlong, ctypes.c_void_p)
+_SIGNATURES = (("cc_gather_chunks", _ARGS), ("cc_scatter_chunks", _ARGS))
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return path
+def library_path():
+    return _build.library_path(SOURCE)
 
 
-def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"chunked_copy-{key}.so"
-
-
-def build() -> tuple[Path, float]:
-    """Compile the kernels unless this source's library exists.  Returns
-    (library path, seconds spent compiling: 0.0 when cached).  The
-    compiler's register report is kept beside the library (``.log``)."""
-    lib = library_path()
-    if lib.exists():
-        return lib, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        lib.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, time.perf_counter() - t0
-
-
-@functools.cache
 def load_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
-    for name in ("cc_gather_chunks", "cc_scatter_chunks"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.load(SOURCE, _SIGNATURES)
 
 
 def host_ids(idx, n: int, *, unique: bool = False) -> np.ndarray:
@@ -113,11 +59,6 @@ def _rows(t: torch.Tensor, what: str) -> None:
                          f"got shape {tuple(t.shape)}")
 
 
-def _check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
 def gather_chunks(src: torch.Tensor, idx) -> torch.Tensor:
     """out[i] = src[idx[i]] on the card.  src: (N, C) CUDA tensor; idx:
     M host ids -> a new (M, C) tensor.  M == 0 launches nothing."""
@@ -132,7 +73,7 @@ def gather_chunks(src: torch.Tensor, idx) -> torch.Tensor:
     stream = torch.cuda.current_stream(src.device).cuda_stream
     err = lib.cc_gather_chunks(src.data_ptr(), out.data_ptr(),
                                ids.ctypes.data, ids.size, row_bytes, stream)
-    _check(err, "gather_chunks")
+    _build.check(err, "gather_chunks")
     gather_chunks.launches += 1
     return out
 
@@ -157,7 +98,7 @@ def scatter_chunks(dst: torch.Tensor, src: torch.Tensor, idx) -> torch.Tensor:
     stream = torch.cuda.current_stream(dst.device).cuda_stream
     err = lib.cc_scatter_chunks(dst.data_ptr(), src.data_ptr(),
                                 ids.ctypes.data, ids.size, row_bytes, stream)
-    _check(err, "scatter_chunks")
+    _build.check(err, "scatter_chunks")
     scatter_chunks.launches += 1
     return dst
 

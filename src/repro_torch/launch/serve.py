@@ -1,0 +1,91 @@
+"""Serving launcher, PyTorch port:
+    python -m repro_torch.launch.serve --arch <id> [options]
+
+Runs batched greedy generation through ``Engine.generate`` on the card
+at the architecture's full width (``--smoke`` takes ``.reduced()``),
+and/or replays a serverless workflow trace over the port's FaaSTube
+data plane to report the tube-timed data-passing budget per request.
+The model runs on ``cuda`` unless ``--device cpu`` asks for the CPU (the
+kernels' plain versions); without a card it raises.
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b \
+      --smoke --device cpu --batch 4 --prompt-len 16 --max-new 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --workflow traffic \
+      --system faastube --requests 16
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+
+def serve_model(args):
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, resolve_device
+
+    if args.w8a16:
+        raise NotImplementedError(
+            "--w8a16 waits for serving/wquant.py (ROADMAP.md §1, model "
+            "stack item 3)")
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    shape = ShapeSpec("serve", args.prompt_len + args.max_new,
+                      args.batch, "decode")
+    device = resolve_device(args.device)
+    eng = Engine(cfg, shape, M.init_params(cfg, 0, device), device=device)
+    toks = torch.arange(args.batch * args.prompt_len,
+                        dtype=torch.int32).reshape(args.batch, -1) % 64
+    out, _ = eng.generate({"tokens": toks}, max_new_tokens=args.max_new)
+    print(f"{cfg.name}: generated {tuple(out.shape)} tokens "
+          f"(batch {args.batch} x {args.max_new} new) on {eng.device}")
+    for row in out.tolist():
+        print("  ", row)
+
+
+def serve_workflow(args):
+    from repro_torch.core.api import SYSTEMS
+    from repro_torch.core.topology import dgx_v100
+    from repro_torch.serving.executor import run_closed_loop
+    from repro_torch.serving.workflow import WORKFLOWS
+
+    w = WORKFLOWS[args.workflow]
+    eng = run_closed_loop(dgx_v100, SYSTEMS[args.system], w,
+                          n_requests=args.requests, interarrival_ms=20.0)
+    lats = sorted(r.t_done - r.t_arrive for r in eng.completed)
+    p50 = lats[len(lats) // 2]
+    print(f"{args.workflow} on {args.system}: {len(lats)} requests, "
+          f"p50={p50:.1f} ms p99={lats[-1]:.1f} ms")
+    r = eng.completed[0]
+    print(f"  first request: h2g={r.h2g_ms:.2f} ms g2g={r.g2g_ms:.2f} ms "
+          f"compute={r.compute_ms:.1f} ms")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--w8a16", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--workflow", default=None)
+    ap.add_argument("--system", default="faastube")
+    ap.add_argument("--requests", type=int, default=8)
+    args = ap.parse_args(argv)
+    if args.arch:
+        serve_model(args)
+    if args.workflow:
+        serve_workflow(args)
+    if not args.arch and not args.workflow:
+        raise SystemExit("pass --arch and/or --workflow")
+
+
+if __name__ == "__main__":
+    main()

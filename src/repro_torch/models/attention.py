@@ -1,0 +1,105 @@
+"""Attention, PyTorch port of ``src/repro/models/attention.py``: RoPE,
+blockwise attention for prefill, single-query decode attention over the
+KV cache, and the cache update.
+
+``blockwise_attention`` keeps its JAX signature and goes through
+``kernels/flash_attention/ops.attention``: on the card the hand-written
+kernel, on the CPU its plain version.  ``decode_attention`` stays plain
+torch, as the JAX package computes it outside any Pallas kernel.
+M-RoPE waits for the Qwen2-VL slice (ROADMAP.md §1).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------- RoPE -----
+
+def rope_angles(positions, head_dim: int, theta: float):
+    """positions (..., L) -> angles (..., L, head_dim//2), f32."""
+    half = head_dim // 2
+    exps = -torch.arange(half, dtype=torch.float32,
+                         device=positions.device) / half
+    return positions[..., None].float() * torch.pow(float(theta), exps)
+
+
+def apply_rotary(x, angles):
+    """x (B, H, L, D); angles broadcastable to (B, 1, L, D//2).  The
+    products are f32 (bf16 x promotes against the f32 angles, as in
+    JAX), cast back to x's dtype at the end."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """Standard RoPE.  positions: (L,) or (B, L)."""
+    ang = rope_angles(positions, x.shape[-1], theta)
+    if ang.dim() == 2:          # (L, half)
+        ang = ang[None, None]
+    else:                       # (B, L, half)
+        ang = ang[:, None]
+    return apply_rotary(x, ang)
+
+
+# -------------------------------------------- blockwise (flash) attention --
+
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, kv_offset: int = 0,
+                        chunk: int = 512):
+    """Online-softmax attention.
+
+    q: (B, Hq, Lq, D); k, v: (B, Hkv, Lkv, D), Hq % Hkv == 0.
+    window > 0 restricts to kv_pos in (q_pos - window, q_pos] (sliding).
+    ``chunk`` is the JAX scan's kv block; the kernel picks its own tiles,
+    so it is accepted and not used.
+    """
+    del chunk
+    return flash_ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal, window=window,
+                               q_offset=q_offset, kv_offset=kv_offset)
+
+
+# ------------------------------------------------------- decode attention --
+
+def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
+    """Single-token attention over the KV cache.
+
+    q: (B, Hq, 1, D); caches: (B, Hkv, S, D); pos: current position (int).
+    Scores are f32 (JAX's ``preferred_element_type``); the probabilities
+    are rounded to the cache dtype before the value sum, which is taken
+    in f32, as in the JAX package.
+    """
+    B, Hq, _, D = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    group = Hq // Hkv
+    qg = q.reshape(B, Hkv, group, D)
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_cache.float()) * scale
+    kv_pos = torch.arange(S, device=q.device)
+    mask = kv_pos <= pos
+    if window:
+        mask = mask & (kv_pos > pos - window)
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def kv_update(cache, new, pos: int):
+    """Write the new token's K or V (B, Hkv, 1, D) at ``pos`` of the
+    cache (B, Hkv, S, D).  Unlike the JAX package, which rewrites the
+    whole cache with ``jnp.where`` to stay partition-friendly on a
+    sharded sequence axis, the port writes the one slot in place and
+    returns the same tensor."""
+    cache[:, :, pos:pos + 1].copy_(new)
+    return cache

@@ -1,0 +1,128 @@
+"""Parameter-spec DSL, PyTorch port.
+
+Models declare their parameters as trees (dicts and lists) of ``PSpec``
+(shape + logical axes + init), as ``src/repro/models/param.py`` does.
+From one spec tree the port derives real tensors (``initialize``) and
+the parameter count; ``from_numpy`` carries the JAX package's weights
+over into a tree of the same structure.  The logical axes are kept for the
+``distributed/`` port; on one card nothing reads them.
+"""
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class PSpec:
+    shape: tuple[int, ...]
+    logical: tuple[Optional[str], ...]
+    dtype: Any = torch.bfloat16
+    init: str = "normal"       # normal | zeros | ones | s4d_log
+    scale: float = 1.0         # stddev multiplier on fan-in-scaled normal
+    fan_in: int = 0            # 0 -> shape[-2]; 3D+ weights set it exactly
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.logical), (self.shape, self.logical)
+
+
+def tree_map(f, tree):
+    """Apply ``f`` to every leaf of a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(f, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(f, v) for v in tree)
+    return f(tree)
+
+
+def tree_leaves_with_paths(tree, prefix: str = ""):
+    """(path, leaf) pairs in the order ``jax.tree_util`` flattens the same
+    tree: dict keys sorted, list items in order; path parts joined by /."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_with_paths(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves_with_paths(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def stack(tree, n: int, logical: str = "stack"):
+    """Prefix every leaf with a stacking dim (layers stored stacked)."""
+    return tree_map(
+        lambda p: PSpec((n, *p.shape), (logical, *p.logical), p.dtype, p.init,
+                        p.scale, p.fan_in),
+        tree,
+    )
+
+
+def _leaf_seed(seed: int, name: str) -> int:
+    # zlib.crc32 (not hash()): Python string hashing is randomized per
+    # process, which would give every run different params.
+    return (seed * 0x9E3779B1 + zlib.crc32(name.encode())) % (2 ** 63)
+
+
+def initialize(tree, seed: int, device="cuda"):
+    """Real tensors on ``device``; each normal leaf draws from its own
+    ``torch.Generator`` seeded from ``seed`` and the crc32 of the leaf's
+    path, as the JAX package folds the path into its key.  Numbers are
+    generated on the device itself, so a 2.7 B-parameter model never
+    passes through the host.  The CPU and CUDA generators give different
+    numbers for one seed: tests that compare devices initialise once and
+    copy."""
+    device = torch.device(device)
+
+    def make(path, spec):
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+        if spec.init == "s4d_log":
+            n = spec.shape[-1]
+            row = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                         device=device))
+            return row.expand(spec.shape).to(spec.dtype).contiguous()
+        gen = torch.Generator(device=device)
+        gen.manual_seed(_leaf_seed(seed, path))
+        fan_in = spec.fan_in or (
+            spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1])
+        std = spec.scale / np.sqrt(max(fan_in, 1))
+        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return x.mul_(std).to(spec.dtype)
+
+    def walk(t, prefix=""):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, f"{prefix}{i}/") for i, v in enumerate(t))
+        return make(prefix[:-1], t)
+
+    return walk(tree)
+
+
+def count_params(tree) -> int:
+    return sum(int(np.prod(p.shape)) for _, p in tree_leaves_with_paths(tree))
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bf16 of its own: JAX hands it over as
+        # ml_dtypes.bfloat16, which torch cannot read, so pass the bits
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                                .copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+
+def from_numpy(tree, device="cuda"):
+    """The JAX package's parameter (or cache) tree, as numpy arrays, into
+    the port's tree of the same structure, shapes and dtypes on
+    ``device``."""
+    device = torch.device(device)
+    return tree_map(lambda a: _to_tensor(a).to(device), tree)

@@ -1,5 +1,6 @@
 """The port on an NVIDIA GPU: the hand-written CUDA kernels against their
-plain versions, and the CUDA backend against the same backend on the CPU.
+plain versions, the CUDA backend against the same backend on the CPU,
+and the serving engine on the card against the same engine on the CPU.
 
 Every test needs a card and ``nvcc``, carries the ``cuda`` marker and
 skips without one.  The file imports neither jax nor the JAX package, so
@@ -137,3 +138,104 @@ def test_backend_on_card_matches_cpu(cuda_device, case, staging):
               "hop_trace"):
         assert getattr(card, f) == getattr(cpu, f), f
     assert [mb for mb, _ in card.events] == [mb for mb, _ in cpu.events]
+
+
+# --------------------------------------------------------- attention ------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [
+    (2, 4, 4, 128, 128, 64, True, 0),      # MHA, causal
+    (2, 8, 2, 200, 200, 128, True, 64),    # GQA, ragged, window
+    (1, 4, 2, 77, 300, 16, True, 0),       # Lkv > Lq, D=16
+    (1, 4, 2, 100, 70, 32, True, 5),       # rows that see no key
+    (2, 4, 4, 96, 96, 64, False, 0),       # not causal
+])
+def test_flash_attention_matches_plain_on_card(cuda_device, shape, dtype,
+                                               tol):
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    B, Hq, Hkv, Lq, Lkv, D, causal, window = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(Lq * Lkv + D)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+               for s in ((B, Hq, Lq, D), (B, Hkv, Lkv, D), (B, Hkv, Lkv, D)))
+    before = FK.flash_attention.launches
+    got = FK.flash_attention(q, k, v, causal=causal, window=window)
+    assert FK.flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("shape", [(3, 4, 1, 64, 128, 4, 6),
+                                   (2, 2, 4, 128, 128, 3, 4),
+                                   (2, 2, 3, 16, 8, 5, 7)])
+def test_paged_attention_matches_plain_on_card(cuda_device, shape, dtype,
+                                               tol):
+    from repro_torch.kernels.paged_attention import kernel as PK
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    B, Hkv, G, D, page, NP, P = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    q = torch.randn((B, Hkv * G, D), generator=gen, device=cuda_device)
+    kp, vp = (torch.randn((P, page, Hkv, D), generator=gen,
+                          device=cuda_device).to(dtype) for _ in range(2))
+    table = torch.randint(-1, P + 1, (B, NP), generator=gen,
+                          device=cuda_device, dtype=torch.int32)
+    lens = torch.randint(0, NP * page + 2, (B,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    lens[0] = 0
+    got = PK.paged_attention(q.to(dtype), kp, vp, table, lens)
+    want = paged_attention_ref(q.to(dtype), kp, vp, table, lens)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.paged_attention import kernel as PK
+    q = torch.zeros((1, 2, 8, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        FK.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 8, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        FK.flash_attention(q, q.half(), q.half())
+    pages = torch.zeros((2, 8, 2, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        PK.paged_attention(torch.zeros((1, 2, 64), device=cuda_device),
+                           pages, pages,
+                           torch.zeros((1, 2), dtype=torch.int64,
+                                       device=cuda_device),
+                           torch.zeros((1,), dtype=torch.int32,
+                                       device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "gemma3-27b"])
+def test_engine_on_card_matches_cpu(cuda_device, arch):
+    """Reduced f32 weights made once on the CPU and copied: the card's
+    prefill logits (through the flash kernel) agree with the CPU's (plain
+    version) within 1e-4, and the greedy tokens are equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.serving.engine import Engine
+    cfg = dataclasses.replace(get_arch(arch).reduced(), cache_dtype="f32")
+    host = PM.tree_map(lambda t: t.float(), M.init_params(cfg, 7, "cpu"))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 16), dtype=np.int32))
+    shape = ShapeSpec("serve", 24, 2, "decode")
+    runs = []
+    for device, params in (("cpu", host),
+                           ("cuda", PM.tree_map(lambda t: t.cuda(), host))):
+        eng = Engine(cfg, shape, params, device=device)
+        logits, _ = eng.prefill({"tokens": toks})
+        out, _ = eng.generate({"tokens": toks}, max_new_tokens=8)
+        runs.append((logits.cpu(), out.cpu()))
+    torch.testing.assert_close(runs[1][0], runs[0][0], atol=1e-4, rtol=1e-4)
+    assert torch.equal(runs[1][1], runs[0][1])

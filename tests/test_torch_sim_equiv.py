@@ -37,7 +37,14 @@ PORT = ROOT / "src" / "repro_torch"
 COPIES = ["errors.py", "core/topology.py", "core/pinned_buffer.py",
           "core/linksim.py", "core/pathfinder.py", "core/pcie_scheduler.py",
           "core/elastic_pool.py", "core/index.py", "core/transfer.py",
-          "core/migration.py", "core/chaos_api.py", "core/api.py"]
+          "core/migration.py", "core/chaos_api.py", "core/api.py",
+          "configs/__init__.py", "configs/base.py", "configs/dbrx_132b.py",
+          "configs/gemma3_27b.py", "configs/grok_1_314b.py",
+          "configs/jamba_1_5_large.py", "configs/minicpm_2b.py",
+          "configs/nemotron_4_15b.py", "configs/qwen2_72b.py",
+          "configs/qwen2_vl_2b.py", "configs/whisper_medium.py",
+          "configs/xlstm_1_3b.py", "serving/workflow.py",
+          "serving/executor.py"]
 
 
 @pytest.fixture(scope="module")
@@ -115,17 +122,24 @@ def _renamed(text: str) -> str:
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_is_the_reference(rel):
     """A copied module is the reference module with its imports renamed;
-    api.py differs only inside its backend branch (jax -> torch)."""
+    api.py differs only inside its backend branch (jax -> torch) and
+    configs/base.py only inside ``cache_jdtype`` (a torch dtype)."""
     ref = _renamed((REF / rel).read_text()).splitlines()
     port = (PORT / rel).read_text().splitlines()
     assert len(port) == len(ref)
     diff = [i for i, (a, b) in enumerate(zip(ref, port)) if a != b]
-    if rel != "core/api.py":
+    if rel == "core/api.py":
+        lo = next(i for i, ln in enumerate(port)
+                  if "# data-plane backend" in ln)
+        hi = next(i for i, ln in enumerate(port)
+                  if ln.strip() == "self.backend = backend")
+    elif rel == "configs/base.py":
+        lo = next(i for i, ln in enumerate(port)
+                  if ln.strip() == "def cache_jdtype(self):")
+        hi = lo + 3
+    else:
         assert diff == []
         return
-    lo = next(i for i, ln in enumerate(port) if "# data-plane backend" in ln)
-    hi = next(i for i, ln in enumerate(port)
-              if ln.strip() == "self.backend = backend")
     assert diff and all(lo <= i < hi for i in diff), diff
 
 
