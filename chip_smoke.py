@@ -8,6 +8,9 @@ CUDA kernels from the checkout's sources, and runs nine phases:
 
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: one ``nvcc`` for sm_90a per source, all started together;
+   the compiler's register and spill report, and each flash instance's
+   registers, local (spill) bytes, shared memory and resident blocks per
+   SM as the card reports them; the bf16 D=64 instance must not spill;
 3. the chunked-copy kernels against their plain versions on the card,
    byte for byte, and their times at the main path's shapes beside their
    bound;
@@ -19,7 +22,8 @@ CUDA kernels from the checkout's sources, and runs nine phases:
 6. spill and reload of 128 MB objects at the default 1024 MB store cap;
 7. the attention kernels against their plain versions on the card, at
    MiniCPM-2B's shapes and at odd ones, and their times beside their
-   bound, their plain versions' and the library call's;
+   bound, their plain versions' and the library call's (flash also at
+   Qwen2-72B's heads, GQA at D=128);
 8. the serving path, reduced, in f32: ``Engine.generate`` for MiniCPM-2B
    and Gemma3-27B (the sliding window) on the card against the same on
    the CPU, with the same weights;
@@ -395,15 +399,24 @@ BF16_FLOPS_PER_S = 989e12
 #: tolerances of tests/test_kernels.py, by dtype name
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PAGED_TOL = {"float32": 5e-5, "bfloat16": 3e-2}
-# (B, Hq, Hkv, Lq, Lkv, D, causal, window): MiniCPM-2B's prefill, a
-# ragged length, GQA with a window, Lkv > Lq, the reduced configs' D=16,
-# and rows that see no key (Lkv < Lq under a window)
-FLASH_CASES = [(8, 36, 36, 1024, 1024, 64, True, 0),
-               (8, 36, 36, 1000, 1000, 64, True, 0),
-               (2, 8, 2, 512, 512, 128, True, 64),
-               (2, 8, 2, 384, 640, 128, True, 0),
-               (2, 4, 2, 16, 16, 16, True, 8),
-               (1, 4, 2, 100, 70, 32, True, 5)]
+# (B, Hq, Hkv, Lq, Lkv, D, causal, window, q_offset, kv_offset):
+# MiniCPM-2B's prefill, a ragged length, GQA with a window, Lkv > Lq, the
+# reduced configs' D=16, rows that see no key (Lkv < Lq under a window),
+# queries after a cached prefix, kv_offset > q_offset (blind rows), and
+# GQA group 8 at D=128 with both offsets and a window under one kv tile
+FLASH_CASES = [(8, 36, 36, 1024, 1024, 64, True, 0, 0, 0),
+               (8, 36, 36, 1000, 1000, 64, True, 0, 0, 0),
+               (2, 8, 2, 512, 512, 128, True, 64, 0, 0),
+               (2, 8, 2, 384, 640, 128, True, 0, 0, 0),
+               (2, 4, 2, 16, 16, 16, True, 8, 0, 0),
+               (1, 4, 2, 100, 70, 32, True, 5, 0, 0),
+               (2, 8, 8, 130, 300, 64, True, 0, 170, 0),
+               (1, 4, 4, 200, 77, 64, True, 0, 0, 40),
+               (2, 16, 2, 300, 333, 128, True, 24, 40, 7)]
+#: Qwen2-72B's attention heads (configs/qwen2_72b.py: 64 query heads,
+#: 8 kv heads of 128) at a 2048-token causal prefill, batch 2: bound by
+#: the operations; timed in phase 7, not a model path
+QWEN_SHAPE = (2, 64, 8, 2048, 128)
 # (B, Hkv, group, D, page, NP, P): MiniCPM-2B's decode over 8 pages of 128
 # tokens, GQA group 4 at D=128, and the reduced configs' D=16
 PAGED_CASES = [(8, 36, 1, 64, 128, 8, 48),
@@ -435,14 +448,17 @@ def attention_cases() -> dict:
     worst = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).removeprefix("torch.")
-        for B, Hq, Hkv, Lq, Lkv, D, causal, window in FLASH_CASES:
+        for case in FLASH_CASES:
+            B, Hq, Hkv, Lq, Lkv, D, causal, window, q_off, kv_off = case
+            kw = dict(causal=causal, window=window, q_offset=q_off,
+                      kv_offset=kv_off)
             q = _rand((B, Hq, Lq, D), dt, gen)
             k = _rand((B, Hkv, Lkv, D), dt, gen)
             v = _rand((B, Hkv, Lkv, D), dt, gen)
-            got = FK.flash_attention(q, k, v, causal=causal, window=window)
-            want = attention_ref(q, k, v, causal=causal, window=window)
+            got = FK.flash_attention(q, k, v, **kw)
+            want = attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
-            case = (B, Hq, Hkv, Lq, Lkv, D, causal, window, name)
+            case = case + (name,)
             check(_agree(got, want, FLASH_TOL[name]),
                   f"flash_attention != plain at {case}: "
                   f"{_abs_err(got, want)}")
@@ -500,29 +516,40 @@ def paged_work(q, k_pages, table, lens):
     return nbytes, 4 * Hq * D * live
 
 
-def attention_times() -> dict:
-    """Device times at MiniCPM-2B's shapes in bf16 (CUDA graph replay,
-    CUDA events), beside the bound, the plain version and the library
-    call (SDPA for flash; paged attention has no single PyTorch call)."""
+def flash_times(B, Hq, Hkv, L, D, gen) -> dict:
+    """The flash kernel, its plain version and SDPA (``enable_gqa``) at
+    one causal bf16 shape, with the bytes and flops the function needs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    bf = torch.bfloat16
+    q = _rand((B, Hq, L, D), bf, gen)
+    k, v = (_rand((B, Hkv, L, D), bf, gen) for _ in range(2))
+    nbytes, flops = flash_work(B, Hq, Hkv, L, L, D, True, 0, 2)
+    heads = f"Hq=Hkv={Hq}" if Hq == Hkv else f"Hq={Hq} Hkv={Hkv}"
+    return {
+        "ms": device_ms([lambda: FK.flash_attention(q, k, v, causal=True)] * 2),
+        "plain_ms": device_ms([lambda: attention_ref(q, k, v, causal=True)]),
+        "library_ms": device_ms([lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=Hq != Hkv)] * 2),
+        "bytes": nbytes, "flops": flops,
+        "shape": f"B={B} {heads} Lq=Lkv={L} D={D} causal bf16"}
+
+
+def attention_times() -> dict:
+    """Device times at MiniCPM-2B's shapes in bf16 (CUDA graph replay,
+    CUDA events), and flash at Qwen2-72B's heads, beside the bound, the
+    plain version and the library call (SDPA for flash; paged attention
+    has no single PyTorch call)."""
+    import torch
     from repro_torch.kernels.paged_attention import kernel as PK
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     gen = torch.Generator(device="cuda").manual_seed(CASE_SEED + 1)
     bf = torch.bfloat16
     B, H, L, D = 8, 36, 1024, 64
-    q, k, v = (_rand((B, H, L, D), bf, gen) for _ in range(3))
-    res = {}
-    nbytes, flops = flash_work(B, H, H, L, L, D, True, 0, 2)
-    res["flash_attention"] = {
-        "ms": device_ms([lambda: FK.flash_attention(q, k, v, causal=True)] * 2),
-        "plain_ms": device_ms([lambda: attention_ref(q, k, v, causal=True)]),
-        "library_ms": device_ms([lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)] * 2),
-        "bytes": nbytes, "flops": flops,
-        "shape": f"B={B} Hq=Hkv={H} Lq=Lkv={L} D={D} causal bf16"}
+    res = {"flash_attention": flash_times(B, H, H, L, D, gen),
+           "flash_attention/qwen2-72b": flash_times(*QWEN_SHAPE, gen)}
     page, NP = 128, L // 128
     kp, vp = (_rand((B * NP, page, H, D), bf, gen) for _ in range(2))
     table = torch.randperm(B * NP, device="cuda", generator=gen) \
@@ -729,6 +756,13 @@ def main() -> int:
         say(f"  {lib.relative_to(ROOT)}: {secs:.2f} s; {regs}")
     for mod in (K, FK, PK):
         mod.load_library()
+    for dt in (torch.bfloat16, torch.float32):
+        for D in FK.HEAD_DIMS:
+            inst = FK.describe(D, dt)
+            say(f"  flash {str(dt).removeprefix('torch.')} D={D}: {inst}")
+            if D == 64 and dt == torch.bfloat16:
+                check(inst["local_bytes"] == 0,
+                      f"the bf16 D=64 flash kernel spills: {inst}")
 
     worst = kernel_cases("cuda")
     say(f"[3] kernels byte-equal to their plain versions "
@@ -822,7 +856,9 @@ def main() -> int:
         f"{ {f'{k[0]}/{k[1]}': v for k, v in attn_err.items()} }")
     attn = attention_times()
     for name, r in attn.items():
-        lib_ms = "-" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+        lib_ms = "-" if r["library_ms"] is None else (
+            f"{r['library_ms']:.5f} (kernel / library "
+            f"{r['ms'] / r['library_ms']:.3f})")
         say(f"  {name} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
             f"{r['plain_ms']:.5f} ms, library {lib_ms} ms, bound "
             f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} B at "
@@ -875,6 +911,12 @@ def main() -> int:
                                         "library_ms", "bound_ms")}})
     for name in ("flash_attention", "paged_attention"):
         r = attn[name]
+        extra = {}
+        if name == "flash_attention":
+            qwen = attn["flash_attention/qwen2-72b"]
+            extra["qwen2-72b"] = {k: qwen[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
@@ -884,7 +926,7 @@ def main() -> int:
             "max_abs_err_f32": attn_err[(name, "float32")],
             "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"], **extra})
     say(json.dumps({"serving": full}))
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
-// Prefill attention for Hopper (sm_90a), written by hand: f32 or bf16,
-// causal and sliding-window masks, GQA, any sequence lengths.
+// Prefill attention for Hopper (sm_90a), written by hand: bf16 on the
+// tensor cores, f32 on the CUDA cores; causal and sliding-window masks,
+// GQA, query and key position offsets, any sequence lengths.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py:flash_attention and
 // _attn_kernel (Pallas, TPU): grid (B*Hq, Lq/128, Lkv/128) whose third,
@@ -10,31 +11,52 @@
 //   over keys j with  k_pos <= q_pos (causal)  and  k_pos > q_pos - window,
 //   q_pos = q_offset + i, k_pos = kv_offset + j; G = Hq / Hkv.
 //
-// Bound.  At MiniCPM-2B's prefill (B=8, H=36, L=1024, D=64, causal) the
-// function reads q, k, v and writes o: 4 * 8*36*1024*64 * 2 B = 151 MB in
-// bf16, 45 us at 3.35 TB/s; it does 2 * 2 * B*H*L*L*D / 2 = 38.7 GFLOP,
-// 39 us at the bf16 tensor-core peak (989 TFLOP/s).  So the bound is the
-// bytes, only just.  This first kernel is simple on purpose: it runs on the
-// CUDA cores in f32 (f32 inputs never drop to TF32: their tolerance is 2e-5),
-// so it sits far above that bound.  Tensor cores (mma / wgmma on bf16
-// tiles), TMA loads and a pipelined kv loop are later work.
+// Bound.  MiniCPM-2B's prefill (B=8, H=36, L=1024, D=64, causal, bf16)
+// reads q, k, v and writes o once: 151 MB, 45 us at 3.35 TB/s; its causal
+// pairs need 38.7 GFLOP, 39 us at the bf16 tensor-core peak (989 TFLOP/s):
+// bound by the bytes, only just.  Qwen2-72B's heads (B=2, Hq=64, Hkv=8,
+// L=2048, D=128, causal) move 151 MB (45 us) for 137 GFLOP (139 us): bound
+// by the operations.  Both sit near the ridge, so the design has to keep
+// the tensor cores fed and read each byte from memory once per block.
 //
-// Design.  Blocks on Hopper run in no order and carry nothing from one to
+// Design of the bf16 kernel (FlashAttention-2's loop on Hopper's warpgroup
+// mma).  Blocks on Hopper run in no order and carry nothing from one to
 // the next, so the TPU's sequential kv grid dimension becomes a loop inside
-// the block.  One block per (b*Hq + h, tile of BQ query rows); 8 warps, each
-// owning BQ/8 rows and their f32 (m, l, acc) in registers.  Per kv tile of
-// BK keys the block stages K (rows padded to D+1 floats, so 32 lanes reading
-// 32 rows hit 32 banks) and V in shared memory as f32; a lane scores BK/32
-// keys of a row, the warp reduces the row's max and sum with shuffles, and
-// each lane accumulates D/32 output dims.  Tiles that every row of the block
-// masks (above the causal diagonal, before the window) are skipped: each
-// row still sees at least one key, and the reference's alpha = exp(m_prev -
-// m_new) = 0 then erases whatever a fully masked tile put in acc.  A block
-// holding a row that sees no key at all keeps every tile, so that row gets
-// the plain version's uniform average (every score -1e30) and never NaN.
-// Keys past Lkv are absent, not masked: their weight is exactly 0.  Ragged
-// edges of Lq and Lkv are masked in the kernel; there is no multiple-of-128
-// requirement (that was the TPU's tiling).
+// the block.  One block per (b*Hq + h, tile of 64 query rows), heaviest
+// causal tiles first; one warpgroup, each warp owning 16 rows.  K and V
+// tiles of 64 keys stream through a 2-stage ring in shared memory, filled
+// by 16-byte cp.async copies, so tile j+1 loads while tile j is computed.
+// Both products are wgmma.mma_async m64nNk16 bf16 products with f32
+// accumulators in registers: S = Q K^T takes Q as A fragments held in
+// registers (loaded once by ldmatrix) and K from shared memory through a
+// matrix descriptor; O += P V takes P straight from the S accumulators as
+// A fragments, never through shared memory, and V through a descriptor as
+// a transposed (dims-contiguous) operand.  K and V are written in the
+// 128-byte swizzled layout the descriptors read, which also keeps the
+// tensor cores' shared-memory reads free of bank conflicts.  The online
+// softmax (m, l) stays in f32 registers; a row's max is reduced over the
+// four lanes that hold it.  Only tiles that cross the causal diagonal, the
+// window edge or the end of Lkv apply a mask.  The epilogue divides by l in
+// f32, rounds to bf16 and stores 16-byte rows through shared memory.
+// (An mma.sync m16n8k16 design with ldmatrix fragments was 1.3-1.4x slower
+// on the same card; PERF.md has the times.)
+//
+// The f32 kernel runs on the CUDA cores in full f32 (its tolerance, 2e-5,
+// rules out TF32 and bf16 tensor cores).  One block per (b*Hq + h, 64 query
+// rows); 8 warps, each owning 8 rows and their (m, l, acc) in registers.
+// Per kv tile of 64 keys the block stages K (rows padded to D+1 floats) and
+// V in shared memory; a lane scores 2 keys of a row, the warp reduces the
+// row's max and sum with shuffles, and each lane accumulates D/32 outputs.
+//
+// Both kernels keep the reference's semantics at the edges.  Tiles that
+// every row of a block masks are skipped: each row still sees at least one
+// key, and alpha = exp(m_prev - m_new) = 0 then erases whatever a fully
+// masked tile put in acc.  A block holding a row that sees
+// no key at all keeps every tile, so that row gets the plain version's
+// uniform average (every score -1e30) and never NaN.  Keys past Lkv are
+// absent, not masked: their weight is exactly 0.  Ragged edges of Lq and
+// Lkv are handled in the kernel; there is no multiple-of-128 requirement
+// (that was the TPU's tiling).
 //
 // The launch goes on the caller's stream; the entry point returns
 // cudaGetLastError().
@@ -46,21 +68,46 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;   // the reference's mask value
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int Hq, Hkv, Lq, Lkv;
+  int causal, window, q_offset, kv_offset;
+  float scale;
+};
+
+// Keys [j_lo, j_hi) hold every key that some row in [qp_first, qp_last]
+// sees; `blind` says that some row of them sees none, and then the range is
+// every key.
+struct KeyRange {
+  int lo, hi;
+  bool blind;
+};
+
+__device__ __forceinline__ KeyRange key_range(const Params& p, int qp_first,
+                                              int qp_last) {
+  KeyRange r{0, p.Lkv, false};
+  r.blind = (p.causal && qp_first < p.kv_offset) ||
+            (p.window && qp_last - p.window + 1 - p.kv_offset > p.Lkv - 1);
+  if (!r.blind) {
+    if (p.causal) r.hi = min(r.hi, qp_last - p.kv_offset + 1);
+    if (p.window) r.lo = max(r.lo, qp_first - p.window + 1 - p.kv_offset);
+  }
+  return r;
+}
+
+// ------------------------------------------------- f32: the CUDA cores ---
+namespace f32k {
+
 constexpr int BQ = 64;              // query rows per block
 constexpr int BK = 64;              // keys per kv tile
 constexpr int NWARPS = 8;
 constexpr int THREADS = NWARPS * 32;
 constexpr int ROWS = BQ / NWARPS;   // query rows per warp
 constexpr int KPL = BK / 32;        // keys per lane in a tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -78,23 +125,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int Hq, Hkv, Lq, Lkv;
-  int causal, window, q_offset, kv_offset;
-  float scale;
-};
-
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(BK * (D + 1) + BK * D + BQ * D + NWARPS * BK);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd(const Params p) {
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_f32(const Params p) {
   constexpr int DPL = (D + 31) / 32;   // output dims per lane
   constexpr int KS = D + 1;            // padded K row stride
   extern __shared__ float smem[];
@@ -111,27 +148,18 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(const Params p) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  const T* q = static_cast<const T*>(p.q) + ((int64_t)bh * p.Lq + q0) * D;
+  const float* q = static_cast<const float*>(p.q) + ((int64_t)bh * p.Lq + q0) * D;
   const int64_t kv_base = (int64_t)(b * p.Hkv + hkv) * p.Lkv * D;
-  const T* k = static_cast<const T*>(p.k) + kv_base;
-  const T* v = static_cast<const T*>(p.v) + kv_base;
-  T* o = static_cast<T*>(p.o) + ((int64_t)bh * p.Lq + q0) * D;
+  const float* k = static_cast<const float*>(p.k) + kv_base;
+  const float* v = static_cast<const float*>(p.v) + kv_base;
+  float* o = static_cast<float*>(p.o) + ((int64_t)bh * p.Lq + q0) * D;
 
   for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
-    Qs[i] = i / D < nq ? to_f32(q[i]) : 0.f;
+    Qs[i] = i / D < nq ? q[i] : 0.f;
   }
 
-  // Keys [j_lo, j_hi) hold every key that some row of the block sees.
   const int qp_first = p.q_offset + q0;
-  const int qp_last = qp_first + nq - 1;
-  int j_lo = 0, j_hi = p.Lkv;
-  const bool blind_row =
-      (p.causal && qp_first < p.kv_offset) ||
-      (p.window && qp_last - p.window + 1 - p.kv_offset > p.Lkv - 1);
-  if (!blind_row) {
-    if (p.causal) j_hi = min(j_hi, qp_last - p.kv_offset + 1);
-    if (p.window) j_lo = max(j_lo, qp_first - p.window + 1 - p.kv_offset);
-  }
+  const KeyRange keys = key_range(p, qp_first, qp_first + nq - 1);
 
   float m[ROWS], l[ROWS], acc[ROWS][DPL];
 #pragma unroll
@@ -142,14 +170,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(const Params p) {
     for (int x = 0; x < DPL; ++x) acc[r][x] = 0.f;
   }
 
-  for (int k0 = (j_lo / BK) * BK; k0 < j_hi; k0 += BK) {
+  for (int k0 = (keys.lo / BK) * BK; k0 < keys.hi; k0 += BK) {
     const int nk = min(BK, p.Lkv - k0);
     __syncthreads();                   // the previous tile is consumed
     for (int i = threadIdx.x; i < BK * D; i += THREADS) {
       const int j = i / D;
       const bool in = j < nk;
-      Ks[j * KS + i % D] = in ? to_f32(k[(int64_t)k0 * D + i]) : 0.f;
-      Vs[i] = in ? to_f32(v[(int64_t)k0 * D + i]) : 0.f;
+      Ks[j * KS + i % D] = in ? k[(int64_t)k0 * D + i] : 0.f;
+      Vs[i] = in ? v[(int64_t)k0 * D + i] : 0.f;
     }
     __syncthreads();
 
@@ -214,35 +242,514 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(const Params p) {
 #pragma unroll
       for (int x = 0; x < DPL; ++x) {
         const int d = lane + 32 * x;
-        if (d < D) store(o + (int64_t)r * D + d, acc[rr][x] / den);
+        if (d < D) o[(int64_t)r * D + d] = acc[rr][x] / den;
       }
     }
   }
 }
 
-template <typename T, int D>
+}  // namespace f32k
+
+// ---------------------------------------------- bf16: the tensor cores ---
+namespace tc {
+
+// Tile shape: one warpgroup, a 2-stage ring (timed faster on the H100 than
+// two warpgroups or three stages; PERF.md has the times).
+constexpr int NW = 4;               // warps per block: one warpgroup
+constexpr int STAGES = 2;           // K/V tiles in the shared-memory ring
+constexpr int BK = 64;              // keys per kv tile
+constexpr int THREADS = NW * 32;
+constexpr int BQ = NW * 16;         // query rows per block
+
+// Q's shared-memory row: D bf16 values plus 16 bytes of padding, so the 8
+// rows one ldmatrix phase reads fall in 8 different groups of 4 banks.
+template <int D>
+__host__ __device__ constexpr int q_stride() { return D + 8; }
+
+// K and V tiles sit in shared memory in the 128-byte swizzled layout that
+// wgmma's matrix descriptors read: per 64-column slab of the head dim (an
+// "atom column"), BK rows of 128 bytes, row r's 16-byte chunk c stored at
+// chunk c ^ (r % 8); every 8 rows start on a 1024-byte boundary.  D < 64
+// fills the first 2D bytes of each row.
+template <int D>
+__host__ __device__ constexpr int atom_cols() { return (D + 63) / 64; }
+
+template <int D>
+__host__ __device__ constexpr int tile_bytes() { return BK * 128 * atom_cols<D>(); }
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return 1024 + (size_t)2 * STAGES * tile_bytes<D>() +
+         sizeof(__nv_bfloat16) * (size_t)BQ * q_stride<D>();
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !in.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 and receives, of each matrix, row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// A shared-memory matrix descriptor for wgmma, 128-byte swizzle: start
+// address, leading and stride byte offsets (LBO, SBO).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// A wgmma reads its A registers and writes its accumulators after it is
+// issued, until wgmma.wait_group: these empty asm statements pin the
+// registers so that the compiler neither reads an accumulator early nor
+// reuses an operand's register before the wait.
+template <int N>
+__device__ __forceinline__ void own(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void own(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+// d (64 x N, f32: this thread's N/2) (+)= a (64 x 16 bf16, the A fragment
+// in registers) * b (16 x N bf16 in shared memory, by descriptor; TRANS_B:
+// stored N-contiguous).  The accumulator and A fragments are laid out as
+// mma.m16n8k16's, warp w of the warpgroup holding rows 16w .. 16w+15:
+// d[4i + e] is row g + 8 (e / 2), column 8i + 2t + e % 2; a[0..3] rows g,
+// g+8, g, g+8 at columns 2t, 2t, 8+2t, 8+2t (and +1), g = lane / 4,
+// t = lane % 4.  scale_d = 0 overwrites d.
+template <int N, int TRANS_B>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                         int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64, 0>(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16, 1>(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32, 1>(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128, 1>(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_bf16(const Params p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int SD = q_stride<D>();
+  constexpr int KD = D / 16;           // k-steps of S = Q K^T
+  constexpr int NT = BK / 8;           // 8-key column blocks of S
+  constexpr int KT = BK / 16;          // k-steps of O += P V
+  constexpr int CPR = D / 8;           // 16-byte chunks per row
+  constexpr int NB = D == 64 ? 32 : D; // dims per P V wgmma (see below)
+  constexpr int TB = tile_bytes<D>();
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const uint32_t base = smem_addr(tc_smem);
+  const uint32_t ring = (base + 1023) & ~1023u;   // K [STAGES][TB], then V
+  const uint32_t kring = ring, vring = ring + STAGES * TB;
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem + (ring - base) + 2 * STAGES * TB);
+
+  const int bh = blockIdx.x;           // b * Hq + hq
+  const int b = bh / p.Hq;
+  const int hkv = (bh % p.Hq) / (p.Hq / p.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest tiles first
+  const int nq = min(BQ, p.Lq - q0);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  const bf16* q = static_cast<const bf16*>(p.q) + ((int64_t)bh * p.Lq + q0) * D;
+  const int64_t kv_base = (int64_t)(b * p.Hkv + hkv) * p.Lkv * D;
+  const bf16* k = static_cast<const bf16*>(p.k) + kv_base;
+  const bf16* v = static_cast<const bf16*>(p.v) + kv_base;
+  bf16* o = static_cast<bf16*>(p.o) + ((int64_t)bh * p.Lq + q0) * D;
+
+  // The kv tiles the block visits; every warp of a warpgroup takes part in
+  // each wgmma, so a warp's 16 rows are masked per element, not skipped.
+  const int qp_first = p.q_offset + q0;
+  const KeyRange keys = key_range(p, qp_first, qp_first + nq - 1);
+  const int w0 = warp * 16;            // the warp's first row in the block
+  const int wq_first = qp_first + w0;
+  const int wq_last = wq_first + 15;
+  const int t_lo = keys.lo / BK;
+  const int n_tiles = (keys.hi + BK - 1) / BK - t_lo;
+
+  auto load_kv = [&](int tile, int buf) {
+    const int k0 = tile * BK;
+    const int nk = min(BK, p.Lkv - k0);
+#pragma unroll
+    for (int i = 0; i < (BK * CPR + THREADS - 1) / THREADS; ++i) {
+      const int c = tid + i * THREADS;
+      if (BK * CPR % THREADS && c >= BK * CPR) break;
+      const int row = c / CPR, chunk = c % CPR;
+      const bool in = row < nk;
+      const int64_t src = (int64_t)(k0 + (in ? row : 0)) * D + chunk * 8;
+      const uint32_t dst = buf * TB + (chunk >> 3) * (BK * 128) + row * 128 +
+                           (((chunk & 7) ^ (row & 7)) << 4);
+      cp_async16(kring + dst, k + src, in);
+      cp_async16(vring + dst, v + src, in);
+    }
+  };
+
+  // Prologue: Q, then the first STAGES-1 kv tiles, one commit group each.
+#pragma unroll
+  for (int i = 0; i < (BQ * CPR + THREADS - 1) / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    if (BQ * CPR % THREADS && c >= BQ * CPR) break;
+    const int row = c / CPR, col = (c % CPR) * 8;
+    const bool in = row < nq;
+    cp_async16(smem_addr(Qs + row * SD + col),
+               q + (int64_t)(in ? row : 0) * D + col, in);
+  }
+  cp_commit();
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load_kv(t_lo + st, st);
+    cp_commit();
+  }
+  cp_wait<STAGES - 1>();               // Q has landed
+  __syncthreads();
+
+  uint32_t qf[KD][4];                  // Q as wgmma A fragments
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    ldsm_x4(qf[kk], smem_addr(Qs + (w0 + (lane & 15)) * SD + kk * 16 +
+                              (lane >> 4) * 8));
+  }
+
+  float acc[D / 2];
+  float m[2] = {NEG_INF, NEG_INF};     // rows g and g+8
+  float l[2] = {0.f, 0.f};             // this lane's columns only
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const float scale_log2 = p.scale * 1.4426950408889634f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_wait<STAGES - 2>();             // tile it has landed ...
+    // ... through the generic proxy; wgmma reads through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();                   // ... for every thread, and tile it-1
+                                       // is consumed: refill its buffer
+    if (it + STAGES - 1 < n_tiles) {
+      load_kv(t_lo + it + STAGES - 1, (it + STAGES - 1) % STAGES);
+    }
+    cp_commit();
+
+    const int k0 = (t_lo + it) * BK;
+    const uint32_t kt_addr = kring + (it % STAGES) * TB;
+    const uint32_t vt_addr = vring + (it % STAGES) * TB;
+
+    // S = Q K^T.  K is K-major: a k-step of 16 dims is 32 bytes along the
+    // swizzled rows, a new atom column every 4 steps; 8-row groups 1024
+    // bytes apart.
+    float s[NT * 4];
+    own(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      wgmma_rs<BK, 0>(s, qf[kk],
+                      desc(kt_addr + (kk >> 2) * (BK * 128) + (kk & 3) * 32,
+                           16, 1024),
+                      kk > 0);
+    }
+    wg_commit();
+    wg_wait0();
+    own(s);
+    own(qf);
+
+    // Scale into the log2 domain, mask only a tile that needs it, and
+    // update the online softmax.
+    const bool masked =
+        k0 + BK > p.Lkv ||
+        (p.causal && p.kv_offset + k0 + BK - 1 > wq_first) ||
+        (p.window && p.kv_offset + k0 <= wq_last - p.window);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < NT * 4; ++i) {
+      const int r = (i >> 1) & 1;
+      float x = s[i] * scale_log2;
+      if (masked) {
+        const int j = k0 + (i >> 2) * 8 + 2 * t4 + (i & 1);
+        const int qpos = wq_first + g + 8 * r;
+        const int kpos = p.kv_offset + j;
+        bool seen = true;
+        if (p.causal) seen = seen && kpos <= qpos;
+        if (p.window) seen = seen && kpos > qpos - p.window;
+        x = j < p.Lkv ? (seen ? x : NEG_INF) : -INFINITY;
+      }
+      s[i] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = exp2_approx(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int i = 0; i < NT * 4; ++i) {
+      s[i] = exp2_approx(s[i] - mx[(i >> 1) & 1]);
+      rsum[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rsum[r];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V, P in registers: the S accumulator of key blocks 2kt and
+    // 2kt+1 is the A fragment of keys 16kt .. 16kt+15.  V is MN-major (dims
+    // contiguous, transposed by the instruction): a k-step of 16 keys is two
+    // 1024-byte row groups, atom columns BK * 128 bytes apart.  At D = 64 the
+    // product goes in two n32 column blocks.  Issued as one m64n64k16, ptxas
+    // (-O1 and -O3, not -O0) packed P into the registers that hold Q's
+    // fragments, which the next tile's S still reads, so S went wrong from
+    // the second kv tile on.  A register-allocation fault, not a rule of the
+    // instructions: the same two products alone in a small kernel are right,
+    // and so is this kernel when Q's fragments are reloaded every tile.  The
+    // n32 halves keep P in S's own accumulator registers (SASS read on the
+    // H100; PERF.md).
+    uint32_t pa[KT][4];
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        pa[kt][x] = pack_bf16(s[8 * kt + 2 * x], s[8 * kt + 2 * x + 1]);
+      }
+    }
+    own(acc);
+    wg_fence();
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+      for (int nb = 0; nb < D / NB; ++nb) {
+        wgmma_rs<NB, 1>(*reinterpret_cast<float(*)[NB / 2]>(&acc[nb * NB / 2]),
+                        pa[kt],
+                        desc(vt_addr + kt * 2048 + nb * NB * 2, BK * 128, 1024), 1);
+      }
+    }
+    wg_commit();
+    wg_wait0();
+    own(acc);
+    own(pa);
+  }
+  cp_wait<0>();
+
+  // Epilogue: O / l in f32, rounded to bf16, staged through the warp's own
+  // rows of Qs (only this warp read them), stored as 16-byte rows.
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int col = dt * 8 + 2 * t4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      *reinterpret_cast<uint32_t*>(Qs + (w0 + g + 8 * r) * SD + col) =
+          pack_bf16(acc[4 * dt + 2 * r] * inv[r], acc[4 * dt + 2 * r + 1] * inv[r]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * CPR / 32; ++i) {
+    const int c = lane + 32 * i;
+    const int row = w0 + c / CPR, col = (c % CPR) * 8;
+    if (row < nq) {
+      *reinterpret_cast<uint4*>(o + (int64_t)row * D + col) =
+          *reinterpret_cast<const uint4*>(Qs + row * SD + col);
+    }
+  }
+}
+
+}  // namespace tc
+
+// One instance per (dtype, D): its kernel, block rows, threads and dynamic
+// shared memory.
+template <int D, bool BF16>
+struct Instance {
+  static constexpr int bq = BF16 ? tc::BQ : f32k::BQ;
+  static constexpr int threads = BF16 ? tc::THREADS : f32k::THREADS;
+  static constexpr size_t smem = BF16 ? tc::smem_bytes<D>() : f32k::smem_bytes<D>();
+  static void (*kernel())(Params) {
+    if constexpr (BF16) return tc::flash_bf16<D>;
+    else return f32k::flash_f32<D>;
+  }
+};
+
+template <int D, bool BF16>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  using I = Instance<D, BF16>;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        I::kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)I::smem);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  const dim3 grid((unsigned)(B * p.Hq), (unsigned)((p.Lq + BQ - 1) / BQ));
-  flash_fwd<T, D><<<grid, THREADS, smem, stream>>>(p);
+  const dim3 grid((unsigned)(B * p.Hq), (unsigned)((p.Lq + I::bq - 1) / I::bq));
+  I::kernel()<<<grid, I::threads, I::smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <int D, bool BF16>
+int describe(int* out) {
+  using I = Instance<D, BF16>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, I::kernel());
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(I::kernel(),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)I::smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, I::kernel(),
+                                                      I::threads, I::smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = I::bq;
+  out[1] = I::threads;
+  out[2] = (int)I::smem;
+  out[3] = attr.numRegs;
+  out[4] = (int)attr.localSizeBytes;
+  out[5] = blocks;
+  return 0;
+}
+
+template <bool BF16>
 int dispatch(const Params& p, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(p, B, stream);
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
+    case 16: return launch<16, BF16>(p, B, stream);
+    case 32: return launch<32, BF16>(p, B, stream);
+    case 64: return launch<64, BF16>(p, B, stream);
+    case 128: return launch<128, BF16>(p, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -252,8 +759,9 @@ int dispatch(const Params& p, int B, int D, cudaStream_t stream) {
 extern "C" {
 
 // q (B, Hq, Lq, D), k and v (B, Hkv, Lkv, D), o like q; contiguous, one
-// dtype (is_bf16: bf16, else f32).  D in {16, 32, 64, 128}; Hq % Hkv == 0;
-// Lq, Lkv >= 1; B * Hq < 2^31 and ceil(Lq / 64) < 65536.
+// dtype (is_bf16: bf16, else f32), bf16 pointers 16-byte aligned.  D in
+// {16, 32, 64, 128}; Hq % Hkv == 0; Lq, Lkv >= 1; B * Hq < 2^31 and
+// ceil(Lq / 64) < 65536.
 int fa_forward(const void* q, const void* k, const void* v, void* o, int B,
                int Hq, int Hkv, int Lq, int Lkv, int D, int is_bf16,
                int causal, int window, int q_offset, int kv_offset,
@@ -261,8 +769,24 @@ int fa_forward(const void* q, const void* k, const void* v, void* o, int B,
   Params p{q, k, v, o, Hq, Hkv, Lq, Lkv, causal, window, q_offset, kv_offset,
            1.0f / sqrtf((float)D)};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(p, B, D, st)
-                 : dispatch<float>(p, B, D, st);
+  return is_bf16 ? dispatch<true>(p, B, D, st) : dispatch<false>(p, B, D, st);
+}
+
+// The instance for (D, dtype): out[0..5] = block rows, threads, dynamic
+// shared memory bytes, registers per thread, local (spill) bytes per
+// thread, resident blocks per SM.
+int fa_describe(int D, int is_bf16, int* out) {
+  switch (D * 2 + (is_bf16 ? 1 : 0)) {
+    case 32: return describe<16, false>(out);
+    case 33: return describe<16, true>(out);
+    case 64: return describe<32, false>(out);
+    case 65: return describe<32, true>(out);
+    case 128: return describe<64, false>(out);
+    case 129: return describe<64, true>(out);
+    case 256: return describe<128, false>(out);
+    case 257: return describe<128, true>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -16,10 +16,13 @@ from repro_torch.kernels import _build
 SOURCE = "flash_attention.cu"
 _I = ctypes.c_int
 _P = ctypes.c_void_p
-_SIGNATURES = (("fa_forward", (_P, _P, _P, _P) + (_I,) * 11 + (_P,)),)
+_SIGNATURES = (("fa_forward", (_P, _P, _P, _P) + (_I,) * 11 + (_P,)),
+               ("fa_describe", (_I, _I, _P)))
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-_BQ = 64                              # query rows per block (the .cu's BQ)
+_BQ = 64            # query rows per block, both kernels (the .cu's BQ)
+_DESCRIBE = ("block_rows", "threads", "smem_bytes", "registers",
+             "local_bytes", "blocks_per_sm")
 
 
 def load_library() -> ctypes.CDLL:
@@ -39,6 +42,9 @@ def check_inputs(q, k, v, window: int) -> None:
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 4-D tensor, got "
                              f"shape {tuple(t.shape)}")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             "(the bf16 kernel copies 16-byte rows)")
     B, Hq, Lq, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
@@ -67,15 +73,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return out
     B, Hq, Lq, D = q.shape
     Hkv, Lkv = k.shape[1], k.shape[2]
-    lib = load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), B, Hq, Hkv, Lq, Lkv, D,
-                         int(q.dtype == torch.bfloat16), int(bool(causal)),
-                         int(window), int(q_offset), int(kv_offset), stream)
+    err = load_library().fa_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv,
+        Lq, Lkv, D, int(q.dtype == torch.bfloat16), int(bool(causal)),
+        int(window), int(q_offset), int(kv_offset), stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def describe(head_dim: int, dtype) -> dict:
+    """The compiled instance for (head_dim, dtype) as the card reports it:
+    block rows and threads, dynamic shared memory, registers and local
+    (spill) bytes per thread, resident blocks per SM."""
+    out = (ctypes.c_int * len(_DESCRIBE))()
+    err = load_library().fa_describe(
+        int(head_dim), int(dtype == torch.bfloat16), out)
+    _build.check(err, "flash_attention.describe")
+    return dict(zip(_DESCRIBE, out))

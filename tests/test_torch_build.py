@@ -1,0 +1,46 @@
+"""The port's kernel builder on the CPU: how it keys libraries, and what it
+does without ``nvcc`` or after a failed launch."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
+
+
+def test_library_path_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
+    base = _build.library_path(FK.SOURCE)
+    assert base == _build.library_path(FK.SOURCE)
+    assert base.parent == _build.BUILD_DIR
+    assert base.name.startswith("flash_attention-")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    first = _build.library_path("k.cu")
+    src.write_text("// two\n")
+    assert _build.library_path("k.cu") != first
+    src.write_text("// one\n")
+    assert _build.library_path("k.cu") == first
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build.library_path("k.cu") != first
+
+
+def test_build_without_nvcc_raises_and_leaves_nothing(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(FK.SOURCE)
+    assert list((tmp_path / "kernels").iterdir()) == []
+
+
+def test_check_raises_on_a_cuda_error():
+    _build.check(0, "flash_attention")
+    with pytest.raises(RuntimeError, match="flash_attention: .* error 700"):
+        _build.check(700, "flash_attention")
+
+
+def test_flash_wrapper_rejects_cpu_tensors_before_building():
+    q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        FK.flash_attention(q, q, q)

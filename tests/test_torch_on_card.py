@@ -143,27 +143,78 @@ def test_backend_on_card_matches_cpu(cuda_device, case, staging):
 # --------------------------------------------------------- attention ------
 
 @pytest.mark.cuda
+def test_flash_attention_launches_one_kernel_per_call(cuda_device, tmp_path):
+    """One bf16 call, then one f32 call, under one profiler session (the
+    card's tracer records kernels in the first session of a process
+    only): exactly two kernels ran, the tensor-core one and then the
+    CUDA-core one."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((3, 2, 4, 200, 64), generator=gen, device=cuda_device)
+    bf = [t.to(torch.bfloat16) for t in x]
+    before = FK.flash_attention.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        FK.flash_attention(*bf, causal=True)
+        FK.flash_attention(*x, causal=True)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        ran = [e["name"] for e in json.load(f)["traceEvents"]
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    assert FK.flash_attention.launches == before + 2
+    assert len(ran) == 2, ran
+    assert "flash_bf16" in ran[0] and "flash_f32" in ran[1], ran
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [
-    (2, 4, 4, 128, 128, 64, True, 0),      # MHA, causal
-    (2, 8, 2, 200, 200, 128, True, 64),    # GQA, ragged, window
-    (1, 4, 2, 77, 300, 16, True, 0),       # Lkv > Lq, D=16
-    (1, 4, 2, 100, 70, 32, True, 5),       # rows that see no key
-    (2, 4, 4, 96, 96, 64, False, 0),       # not causal
+    # (B, Hq, Hkv, Lq, Lkv, D, causal, window, q_offset, kv_offset)
+    (2, 4, 4, 128, 128, 64, True, 0, 0, 0),       # MHA, causal
+    (2, 8, 2, 200, 200, 128, True, 64, 0, 0),     # GQA, ragged, window
+    (1, 4, 2, 77, 300, 16, True, 0, 0, 0),        # Lkv > Lq, D=16
+    (1, 4, 2, 100, 70, 32, True, 5, 0, 0),        # rows that see no key
+    (2, 4, 4, 96, 96, 64, False, 0, 0, 0),        # not causal
+    # Lq and Lkv off every tile multiple, at each head dim
+    (1, 4, 2, 200, 77, 16, True, 0, 0, 0),
+    (1, 4, 2, 200, 77, 32, True, 0, 0, 0),
+    (1, 4, 2, 200, 77, 64, False, 0, 0, 0),
+    (1, 4, 2, 200, 77, 128, True, 0, 0, 0),
+    (1, 4, 4, 130, 300, 64, True, 0, 170, 0),     # queries after a prefix
+    (1, 4, 4, 200, 77, 64, True, 0, 0, 40),       # kv_offset > q_offset:
+                                                  # 40 blind rows
+    (1, 4, 2, 100, 150, 32, True, 24, 60, 10),    # both offsets, window
+    (2, 16, 2, 256, 256, 128, True, 0, 0, 0),     # GQA group 8
+    (1, 4, 2, 300, 300, 64, True, 24, 0, 0),      # window < BK
+    (1, 2, 2, 64, 40, 64, True, 16, 30, 0),       # the window passes every
+                                                  # key of the last rows
+    # many kv tiles at D=64, where P V is issued in two halves
+    (1, 4, 4, 100, 1100, 64, False, 0, 30, 7),    # 18 tiles, not causal
+    (1, 4, 2, 200, 1300, 64, True, 0, 1100, 5),   # after a long prefix
+    (2, 4, 4, 1024, 1024, 64, True, 0, 0, 0),     # MiniCPM-2B's, narrow
+    (1, 2, 2, 130, 1088, 64, True, 300, 950, 0),  # window over many tiles
+    (1, 4, 1, 90, 1500, 128, False, 0, 0, 0),     # 24 tiles at D=128
 ])
 def test_flash_attention_matches_plain_on_card(cuda_device, shape, dtype,
                                                tol):
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    B, Hq, Hkv, Lq, Lkv, D, causal, window = shape
+    B, Hq, Hkv, Lq, Lkv, D, causal, window, q_off, kv_off = shape
+    kw = dict(causal=causal, window=window, q_offset=q_off, kv_offset=kv_off)
     gen = torch.Generator(device=cuda_device).manual_seed(Lq * Lkv + D)
     q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
                for s in ((B, Hq, Lq, D), (B, Hkv, Lkv, D), (B, Hkv, Lkv, D)))
     before = FK.flash_attention.launches
-    got = FK.flash_attention(q, k, v, causal=causal, window=window)
+    got = FK.flash_attention(q, k, v, **kw)
     assert FK.flash_attention.launches == before + 1
-    want = attention_ref(q, k, v, causal=causal, window=window)
+    want = attention_ref(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
