@@ -218,29 +218,124 @@ def test_flash_attention_matches_plain_on_card(cuda_device, shape, dtype,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+def _paged_inputs(shape, dtype, device, seed):
+    """q, pages, a table with ids from -1 to P (repeated, negative and
+    too large) and ragged lengths: the first 0, the second on a span
+    boundary of the plan, one past it, the rest random up to NP * page + 1."""
+    from repro_torch.kernels.paged_attention import kernel as PK
+    B, Hkv, G, D, page, NP, P = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((B, Hkv * G, D), generator=gen, device=device).to(dtype)
+    kp, vp = (torch.randn((P, page, Hkv, D), generator=gen,
+                          device=device).to(dtype) for _ in range(2))
+    table = torch.randint(-1, P + 1, (B, NP), generator=gen, device=device,
+                          dtype=torch.int32)
+    lens = torch.randint(0, NP * page + 2, (B,), generator=gen,
+                         device=device, dtype=torch.int32)
+    split_len = PK.split_plan(B, Hkv, NP, page, D,
+                              PK.resident_slots(D, q.device.index))[0]
+    lens[0] = 0
+    for i, n in enumerate((split_len, split_len + 1)[:B - 1]):
+        lens[1 + i] = n
+    return q, kp, vp, table, lens
+
+
+def _assert_paged_close(got, want):
+    """chip_smoke.py's limit: 5e-5 in f32; in bf16, in each output row the
+    largest difference at most 2**-6 of the row's largest |want|."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-5)
+        return
+    assert bool(torch.isfinite(got).all())
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    rel = (g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-30)
+    assert float(rel.max()) <= 2 ** -6, float(rel.max())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
-                                       (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("shape", [(3, 4, 1, 64, 128, 4, 6),
-                                   (2, 2, 4, 128, 128, 3, 4),
-                                   (2, 2, 3, 16, 8, 5, 7)])
-def test_paged_attention_matches_plain_on_card(cuda_device, shape, dtype,
-                                               tol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    # (B, Hkv, G, D, page, NP, P)
+    (3, 4, 1, 64, 128, 4, 6),
+    (2, 2, 4, 128, 128, 3, 4),
+    (2, 2, 3, 16, 8, 5, 7),
+    (4, 2, 2, 64, 128, 32, 40),      # many spans, ragged lengths
+    (3, 2, 8, 128, 128, 16, 20),     # group 8 at D = 128, many spans
+    (3, 2, 2, 64, 8, 40, 50),        # page 8: eight pages a tile
+    (2, 1, 20, 32, 64, 20, 24),      # group 20: two or three head groups
+    (3, 2, 5, 16, 16, 30, 32),       # group 5: idle head rows a block
+])
+def test_paged_attention_matches_plain_on_card(cuda_device, shape, dtype):
     from repro_torch.kernels.paged_attention import kernel as PK
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    B, Hkv, G, D, page, NP, P = shape
-    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
-    q = torch.randn((B, Hkv * G, D), generator=gen, device=cuda_device)
-    kp, vp = (torch.randn((P, page, Hkv, D), generator=gen,
-                          device=cuda_device).to(dtype) for _ in range(2))
-    table = torch.randint(-1, P + 1, (B, NP), generator=gen,
-                          device=cuda_device, dtype=torch.int32)
-    lens = torch.randint(0, NP * page + 2, (B,), generator=gen,
-                         device=cuda_device, dtype=torch.int32)
-    lens[0] = 0
-    got = PK.paged_attention(q.to(dtype), kp, vp, table, lens)
-    want = paged_attention_ref(q.to(dtype), kp, vp, table, lens)
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    q, kp, vp, table, lens = _paged_inputs(shape, dtype, cuda_device,
+                                           sum(shape))
+    got = PK.paged_attention(q, kp, vp, table, lens)
+    want = paged_attention_ref(q, kp, vp, table, lens)
+    _assert_paged_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_is_deterministic(cuda_device, dtype):
+    """Two calls give the same bits: both passes sum in a fixed order."""
+    from repro_torch.kernels.paged_attention import kernel as PK
+    args = _paged_inputs((4, 4, 2, 64, 128, 24, 40), dtype, cuda_device, 3)
+    a = PK.paged_attention(*args)
+    b = PK.paged_attention(*args)
+    assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+_PROFILE_PAGED = """
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, sys.argv[1])
+from test_torch_on_card import _paged_inputs
+from repro_torch.kernels.paged_attention import kernel as PK
+args = _paged_inputs((2, 2, 4, 128, 128, 16, 20), torch.bfloat16,
+                     torch.device("cuda"), 4)
+PK.load_library()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    PK.paged_attention(*args)
+    torch.cuda.synchronize()
+prof.export_chrome_trace(sys.argv[2])
+ran = [e["name"] for e in json.load(open(sys.argv[2]))["traceEvents"]
+       if e.get("ph") == "X" and e.get("cat") == "kernel"]
+print(json.dumps({"ran": ran, "launches": PK.paged_attention.launches}))
+"""
+
+
+@pytest.mark.cuda
+def test_paged_attention_launches_split_then_merge(cuda_device, tmp_path):
+    """One call with several spans runs exactly two kernels under the
+    profiler, paged_split and then paged_merge, and counts one launch.
+    In a process of its own: the card's tracer records kernels in the
+    first profiler session of a process only."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels.paged_attention import kernel as PK
+    args = _paged_inputs((2, 2, 4, 128, 128, 16, 20), torch.bfloat16,
+                         cuda_device, 4)
+    assert PK.split_plan(2, 2, 16, 128, 128,
+                         PK.resident_slots(128, args[0].device.index))[1] > 1
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(here.parent / "src"), os.environ.get("PYTHONPATH", "")]))
+    res = subprocess.run([sys.executable, "-c", _PROFILE_PAGED, str(here),
+                          str(tmp_path / "trace.json")], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-2000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    ran = out["ran"]
+    assert out["launches"] == 1
+    assert len(ran) == 2, ran
+    assert "paged_split" in ran[0] and "paged_merge" in ran[1], ran
 
 
 @pytest.mark.cuda
