@@ -4,9 +4,10 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 It imports the port (``src/repro_torch``) only, builds the hand-written
-CUDA kernels from the checkout's sources, and runs nine phases:
+CUDA kernels from the checkout's sources, and runs eleven phases:
 
-1. environment: torch / CUDA versions, the card's name and power limit;
+1. environment: torch / CUDA versions, the card's name and power limit,
+   and ``synth_payload`` against numpy's own uint8 draw;
 2. build: one ``nvcc`` for sm_90a per source, all started together;
    the compiler's register and spill report, and each flash and paged
    instance's registers, local (spill) bytes, shared memory and resident
@@ -35,11 +36,28 @@ CUDA kernels from the checkout's sources, and runs nine phases:
 9. the serving path at full width: ``Engine(minicpm-2b)`` in bf16 on the
    card, 8 requests of 1024 prompt tokens, 32 new tokens each; then the
    paged kernel over layer 0's KV cache cut into shuffled 128-token
-   pages, against the engine's decode attention on the contiguous cache.
+   pages, against the engine's decode attention on the contiguous cache;
+10. chaos with real bytes: a ``WorkflowEngine`` running DRIVING and
+    TRAFFIC at the paper's object sizes on ``cluster(2)`` with a
+    ``TorchBackend`` on the card, under a seeded ``FaultSchedule`` of
+    all four fault kinds with the recovery ladder armed: the simulated
+    trace equal to the run without a backend, the bytes of every object
+    the index knows equal after each fault and at the end, and of every
+    transfer that failed and re-planned; what the backend still holds
+    for objects the index lost;
+11. the swap tier at real checkpoint sizes: ``ModelCache`` swapping
+    MiniCPM-2B, Qwen2-VL-2B and Whisper-medium (``profile_from_arch``:
+    5450.7, 3554.3 and 817.2 MB) through one GPU under a 7000 MB store
+    cap, under the SLO and the LRU policy: stats and first-token times
+    equal to the run without a backend, every reload's bytes equal on
+    the card, no device copy after an eviction; each reload's wall time
+    and first-layer landing beside the PCIe 5.0 bound and one plain
+    page-locked copy of the same bytes.
 
-The data plane (phases 4-6) and the serving path (phase 9) are the main
-paths: the launch counters are set to 0 just before each and read just
-after it; the reads that check landed bytes are kept out of the counts.
+The data plane (phases 4-6), the serving path (phase 9), the chaos run
+(10) and the swap tier (11) are the main paths: the launch counters are
+set to 0 just before each and read just after it; the reads that check
+landed bytes are kept out of the counts.
 Float32 matrix products stay in full f32 (TF32 off).  Any failed check
 raises and the script exits nonzero.  The second-to-last line is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -52,6 +70,7 @@ import json
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -809,6 +828,479 @@ def full_width(say) -> dict:
     return res
 
 
+# ------------------------------------------------------- phases 10-11 ---
+def port_lib():
+    """The modules phases 10-11 build their runs from: the port's.  A test
+    passes the JAX package's modules of the same names instead, to run
+    the same scenario through the reference."""
+    from types import SimpleNamespace
+    from repro_torch.core import api, faults, migration, topology, transfer
+    from repro_torch.serving import executor, modelcache, workflow
+    return SimpleNamespace(api=api, faults=faults, migration=migration,
+                           topology=topology, transfer=transfer,
+                           executor=executor, modelcache=modelcache,
+                           workflow=workflow)
+
+
+def scaled(w, s: float):
+    """A workflow with every edge, input and output ``s`` times its size."""
+    import dataclasses
+    if s == 1.0:
+        return w
+    return dataclasses.replace(
+        w, stages=tuple(dataclasses.replace(
+            st, deps=tuple((d, mb * s) for d, mb in st.deps))
+            for st in w.stages),
+        input_mb={k: v * s for k, v in w.input_mb.items()},
+        output_mb={k: v * s for k, v in w.output_mb.items()})
+
+
+def held_bytes(backend, tube) -> dict:
+    """What the backend still holds, split by whether the index still
+    knows the object: {("device"|"host", "live"|"lost"): [count, MB]}."""
+    live = set(tube.index.global_table)
+    out = {(k, s): [0, 0.0] for k in ("device", "host")
+           for s in ("live", "lost")}
+    for st in backend.stores.values():
+        for did, obj in st.objects.items():
+            cell = out["device" if st.device else "host",
+                       "live" if did in live else "lost"]
+            cell[0] += 1
+            cell[1] += obj.nbytes / 2 ** 20
+    return out
+
+
+# ------------------------------------------------------------ phase 10 ---
+#: the chaos run: DRIVING and TRAFFIC in turns, 10 ms apart, on two
+#: simulated DGX nodes, under one seeded schedule of all four fault
+#: kinds (seed chosen so that every kind fires, two transfers fail and
+#: re-plan, and objects outlive the run in the index)
+CHAOS_SEED, CHAOS_HORIZON_MS = 16, 120.0
+CHAOS_FAULTS = {"n_link": 3, "n_brownout": 2, "n_node": 1, "n_host": 2}
+CHAOS_FLOWS = ("driving", "traffic", "driving", "traffic")
+
+
+def chaos_run(backend, check_bytes, *, scale: float = 1.0, seed: int = CHAOS_SEED,
+              lib=None) -> dict:
+    """A ``WorkflowEngine`` workload on ``cluster(2)`` under
+    ``FaultInjector(FaultSchedule.generate(...))`` with its recovery
+    ladder, the backend armed on the engine's tube (or none).  With a
+    backend, ``check_bytes(backend, data_id, endpoint, size_mb)`` holds the
+    bytes of every object the index knows after each fault fires and at
+    the end, and of every transfer the simulator failed and re-planned
+    when its last rung completes.  Returns the simulated trace and
+    stats, which must not depend on the backend."""
+    lib = lib or port_lib()
+    topo = lib.topology.cluster(2)
+    eng = lib.executor.WorkflowEngine(topo, lib.api.FAASTUBE)
+    tube = eng.tube
+    if backend is not None:
+        tube.backend = tube.engine.backend = backend
+    sched = lib.faults.FaultSchedule.generate(
+        topo, seed=seed, horizon_ms=CHAOS_HORIZON_MS, **CHAOS_FAULTS)
+    inj = lib.faults.FaultInjector(tube, sched,
+                                   recovery=lib.transfer.RecoveryPolicy())
+    checked = {"live": 0, "replans": []}
+
+    def live_bytes():
+        for did, rec in sorted(tube.index.global_table.items()):
+            check_bytes(backend, did, rec.device, rec.size_mb)
+            checked["live"] += 1
+
+    fire = inj._fire
+
+    def fired(f):
+        fire(f)
+        if backend is not None:
+            live_bytes()
+
+    inj._fire = fired
+    inj.arm()
+    attempt = tube.engine._attempt
+
+    def rung(plan, t, on_done, on_fail, n, done_mb, handle=None):
+        if n == 1 and plan.data_id and on_done is not None:
+            inner = on_done
+
+            def on_done(sim, tr, inner=inner, plan=plan):
+                if tr is None or not tr.failed:
+                    checked["replans"].append(
+                        (plan.kind, plan.data_id, plan.src, plan.dst,
+                         plan.size_mb, sim.now))
+                    if backend is not None:
+                        check_bytes(backend, plan.data_id, plan.dst,
+                                    plan.size_mb)
+                inner(sim, tr)
+        return attempt(plan, t, on_done, on_fail, n, done_mb, handle)
+
+    tube.engine._attempt = rung
+    for i, name in enumerate(CHAOS_FLOWS):
+        eng.submit_workflow(scaled(lib.workflow.WORKFLOWS[name], scale),
+                            10.0 * i)
+    eng.run()
+    if backend is not None:
+        live_bytes()
+    return {
+        "trace": sorted((tr.tid, tr.func, tr.t_submit, tr.t_done,
+                         tr.failed, tr.chunks_done)
+                        for tr in tube.sim.transfers.values()),
+        "requests": sorted((r.rid, r.t_arrive, r.t_done, r.h2g_ms,
+                            r.g2g_ms, r.compute_ms, bool(r.failed))
+                           for r in eng.completed + eng.failed),
+        "stats": dict(tube.stats), "fired": dict(inj.fired),
+        "faults": sched.by_kind(), "retries": tube.engine.retries,
+        "failures": tube.engine.failures, "n_events": tube.sim.n_events,
+        "recovered_stages": eng.recovered_stages,
+        "replans": checked["replans"], "checked": checked["live"],
+        "live": sorted(tube.index.global_table), "tube": tube}
+
+
+def chaos_phase(check_bytes, say) -> dict:
+    """Phase 10: the chaos run at the paper's object sizes, on the card
+    and without a backend; the two must agree exactly."""
+    from repro_torch.core.backend_torch import TorchBackend
+    plain = chaos_run(None, None)
+    be = TorchBackend(store_mb=2048.0, host_mb=4096.0)
+    t0 = time.perf_counter()
+    res = chaos_run(be, check_bytes)
+    wall = time.perf_counter() - t0
+    for key in ("trace", "requests", "stats", "fired", "retries",
+                "failures", "n_events", "replans", "live"):
+        check(res[key] == plain[key],
+              f"chaos: {key} changed with the backend armed")
+    check(all(res["faults"][k] >= 1 for k in ("link", "brownout", "node",
+                                               "host")),
+          f"chaos: the schedule lacks a fault kind: {res['faults']}")
+    check(all(res["fired"][k] >= 1 for k in ("link", "brownout", "node",
+                                              "host")),
+          f"chaos: a fault kind never fired: {res['fired']}")
+    check(res["replans"], "chaos: no transfer failed and re-planned")
+    check(len(res["requests"]) == len(CHAOS_FLOWS),
+          f"chaos: {len(res['requests'])} requests ended")
+    held = held_bytes(be, res["tube"])
+    say(f"  schedule {res['faults']}, fired {res['fired']}; retries "
+        f"{res['retries']}, terminal failures {res['failures']}, "
+        f"recovered stages {res['recovered_stages']}, lost "
+        f"{res['stats']['lost']}; {len(res['requests'])} requests "
+        f"({sum(r[-1] for r in res['requests'])} failed); "
+        f"{len(res['trace'])} sim transfers, {res['n_events']} events, "
+        f"trace equal to the run without a backend; {wall:.2f} s")
+    say(f"  bytes equal at {res['checked']} index entries (after each "
+        f"fault and at the end; {len(res['live'])} live at the end) and "
+        f"after {len(res['replans'])} re-planned transfers: "
+        f"{[(k, d, s, t) for k, d, s, t, _mb, _t in res['replans']]}")
+    say(f"  backend holds, live / lost to the index: device "
+        f"{held['device', 'live'][0]} objects {held['device', 'live'][1]:.1f}"
+        f" MB / {held['device', 'lost'][0]} objects "
+        f"{held['device', 'lost'][1]:.1f} MB; hosts "
+        f"{held['host', 'live'][0]} objects {held['host', 'live'][1]:.1f} MB"
+        f" / {held['host', 'lost'][0]} objects "
+        f"{held['host', 'lost'][1]:.1f} MB; {len(be.reports)} plans moved "
+        f"bytes")
+    res["held"] = {f"{k}/{s}": v for (k, s), v in held.items()}
+    return res
+
+
+# ------------------------------------------------------------ phase 11 ---
+#: the swap tier: three checkpoints served from one GPU of the second
+#: node, the registry on the first; MiniCPM-2B and Whisper prestaged on
+#: the serving node's page-locked ring, Qwen2-VL registry-backed.  The
+#: trace's seed is one under which, in both policies, MiniCPM-2B swaps in
+#: from the node's ring (a host hit) and, after a demotion, from the
+#: registry (cold), and the policies evict differently
+SWAP_MODELS = (("minicpm-2b", True), ("qwen2-vl-2b", False),
+               ("whisper-medium", True))
+SWAP_GPU = "n1:gpu0"
+SWAP_CAP_MB = 7000.0          # fits MiniCPM-2B + Whisper, not + Qwen2-VL
+SWAP_HOST_MB = 7000.0         # the node's pinned checkpoint ring
+SWAP_SEED, SWAP_REQUESTS, SWAP_IAT_MS = 32, 8, 400.0
+#: PCIe 5.0 x16, one way: the host link's bound for a reload
+PCIE5_BYTES_PER_S = 64e9
+
+
+def swap_profiles(scale: float = 1.0, lib=None) -> list:
+    """((ModelProfile, prestage), ...) of SWAP_MODELS from
+    ``profile_from_arch``; ``scale`` shrinks every layer alike (tests)."""
+    lib = lib or port_lib()
+    M = lib.modelcache
+    out = []
+    for arch, prestage in SWAP_MODELS:
+        p = M.profile_from_arch(arch)
+        if scale != 1.0:
+            p = M.make_profile(p.name, p.arch,
+                               [mb * scale for mb in p.layer_mb])
+        out.append((p, prestage))
+    return out
+
+
+def swap_trace(names, *, seed=SWAP_SEED, n=SWAP_REQUESTS, iat=SWAP_IAT_MS):
+    """Seeded request trace: exponential gaps, models drawn uniformly."""
+    import random
+    r = random.Random(seed)
+    t, out = 0.0, []
+    for _ in range(n):
+        t += r.expovariate(1.0 / iat)
+        out.append((t, r.choice(names)))
+    return out
+
+
+def swap_run(backend, check_bytes, profiles, trace, *, policy: str,
+             cap_mb: float = SWAP_CAP_MB, host_cache_mb: float = SWAP_HOST_MB,
+             lib=None) -> dict:
+    """``ModelCache`` over ``FaaSTube(cluster(2), store_cap_mb=cap_mb,
+    backend=backend)``: ``profiles`` ((ModelProfile, prestage), ...)
+    registered for SWAP_GPU, then ``trace`` ((t, name), ...) replayed.
+    With a backend, every reload that lands is checked at SWAP_GPU with
+    ``check_bytes(backend, data_id, SWAP_GPU, size_mb)``, and every eviction
+    must leave no copy there.  Returns stats, ttft and what happened
+    when, which must not depend on the backend."""
+    import dataclasses
+    lib = lib or port_lib()
+    tube = lib.api.FaaSTube(
+        lib.topology.cluster(2),
+        dataclasses.replace(lib.api.FAASTUBE, store_cap_mb=cap_mb),
+        backend=backend)
+    mc = lib.modelcache.ModelCache(tube, policy=policy,
+                                   host_cache_mb=host_cache_mb)
+    puts = []
+    if backend is not None:
+        put = backend.put_object
+
+        def timed_put(data_id, endpoint, payload=None, size_mb=None):
+            t0 = time.perf_counter()
+            obj = put(data_id, endpoint, payload, size_mb)
+            puts.append((data_id, endpoint, obj.nbytes, tube.sim.now,
+                         time.perf_counter() - t0))
+            return obj
+        backend.put_object = timed_put
+    for p, prestage in profiles:
+        mc.register(p, SWAP_GPU, 0.0, prestage=prestage)
+    loads, evictions = [], []
+    reload_complete = tube._reload_complete
+
+    def landed(item, rec, dst, sim):
+        reload_complete(item, rec, dst, sim)
+        if item.data_id.startswith("ckpt:") \
+                and item.state == lib.migration.DEVICE:
+            loads.append((item.data_id, sim.now))
+            if backend is not None:
+                check_bytes(backend, item.data_id, dst, item.size_mb)
+
+    tube._reload_complete = landed
+    evict = mc._evict
+
+    def evicted(e, now):
+        evict(e, now)
+        evictions.append((e.data_id, now))
+        if backend is not None:
+            check(SWAP_GPU not in backend.where(e.data_id),
+                  f"{e.data_id}: a device copy outlived its eviction")
+
+    mc._evict = evicted
+    for t, name in trace:
+        tube.sim.call_at(t, lambda sim, n=name, t=t: mc.request(n, t))
+    tube.sim.run()
+    # the reloads on the simulated clock, in submission order
+    sim_loads = [(tr.func, tr.t_submit, tr.t_done)
+                 for _tid, tr in sorted(tube.sim.transfers.items())
+                 if tr.func in mc.entries]
+    return {"stats": dict(mc.stats), "ttft": list(mc.ttft), "loads": loads,
+            "evictions": evictions, "sim_loads": sim_loads, "puts": puts,
+            "tube": tube, "mc": mc}
+
+
+def _ckpt_check(oracles):
+    """check(backend, data_id, endpoint, size_mb) that compares a
+    checkpoint's rows with synth_payload on the card; the oracle is made
+    once per checkpoint and kept in device memory."""
+    import torch
+    from repro_torch.core.backend_torch import _index, _run, nbytes_of, \
+        synth_payload
+
+    def check_ckpt(backend, did, ep, mb):
+        n = nbytes_of(mb)
+        want = oracles.get(did)
+        if want is None:
+            want = oracles[did] = torch.from_numpy(
+                synth_payload(did, n)).to(backend.device)
+        st = backend.stores[ep]
+        rows = st.objects[did].rows
+        step = 256                    # 512 MiB of rows at a time
+        for s in range(0, len(rows), step):
+            part = rows[s:s + step]
+            run = _run(part)
+            got = st.slabs[run] if run is not None else \
+                st.slabs[_index(part).to(st.slabs.device)]
+            lo = s * st.slabs.shape[1]
+            hi = min(n, lo + got.numel())
+            check(got.view(-1)[:hi - lo].equal(want[lo:hi]),
+                  f"{did} at {ep}: bytes differ from synth_payload")
+    return check_ckpt
+
+
+def swap_yardsticks(backend, profiles) -> dict:
+    """Per checkpoint: bytes, the PCIe 5.0 bound, one plain page-locked
+    -> device ``copy_`` of the same bytes (from the host store that holds
+    it, CUDA events, best of 3), and the host-side staging copy alone
+    (the same bytes through one ring window, trigger batch by batch)."""
+    import torch
+    from repro_torch.core.backend_torch import _run, nbytes_of
+    out = {}
+    for p, _ in profiles:
+        did = f"ckpt:{p.name}"
+        host = next(ep for ep in backend.where(did)
+                    if not backend.stores[ep].device)
+        st = backend.stores[host]
+        run = _run(st.objects[did].rows)
+        check(run is not None and st.slabs.is_pinned(),
+              f"{did} at {host}: not one run of page-locked rows")
+        src = st.slabs[run]
+        dst = torch.empty_like(src, device=backend.device)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        copy_ms = []
+        for _ in range(3):
+            e0.record()
+            dst.copy_(src, non_blocking=True)
+            e1.record()
+            e1.synchronize()
+            copy_ms.append(e0.elapsed_time(e1))
+        del dst
+        win = backend.ring_for(host).buf[:backend.batch_chunks]
+        t0 = time.perf_counter()
+        for s in range(0, src.shape[0], backend.batch_chunks):
+            part = src[s:s + backend.batch_chunks]
+            win[:part.shape[0]].copy_(part)
+        stage_ms = (time.perf_counter() - t0) * 1e3
+        n = nbytes_of(p.total_mb)
+        out[p.name] = {"bytes": n, "bound_ms": n / PCIE5_BYTES_PER_S * 1e3,
+                       "copy_ms": min(copy_ms), "stage_ms": stage_ms}
+    torch.cuda.empty_cache()
+    return out
+
+
+def swap_policy(policy: str, profiles, trace, check_ckpt, say, *,
+                cap: float, host_cache: float) -> dict:
+    """One policy of phase 11: the run without a backend, then on a fresh
+    ``TorchBackend``; checks, prints and returns what phase 11 reports.
+    The backend and its page-locked stores are freed on return."""
+    import resource
+    import torch
+    from repro_torch.core.backend_torch import TorchBackend, nbytes_of
+    from repro_torch.core.transfer import host_of
+    byname = {p.name: p for p, _ in profiles}
+    total_mb = sum(p.total_mb for p, _ in profiles)
+    kw = {"policy": policy, "cap_mb": cap, "host_cache_mb": host_cache}
+    plain = swap_run(None, None, profiles, trace, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    be = TorchBackend(store_mb=cap + 64.0, host_mb=total_mb + 64.0)
+    # every store at its full size and both staging rings made before the
+    # run: no reload pays a store's growth or a ring's first page-locked
+    # allocation, no page-locked store regrows mid-run
+    hosts = (host_of(SWAP_GPU), "n0:host")       # serving node, registry
+    grow = {ep: be.reserve(ep, mb) for ep, mb in (
+        (SWAP_GPU, cap + 64.0), *((h, total_mb + 64.0) for h in hosts))}
+    for h in hosts:
+        be.ring_for(h)
+    t0 = time.perf_counter()
+    res = swap_run(be, check_ckpt, profiles, trace, **kw)
+    wall = time.perf_counter() - t0
+    for key in ("stats", "ttft", "loads", "evictions", "sim_loads"):
+        check(res[key] == plain[key],
+              f"swap {policy}: {key} changed with the backend armed")
+    s = res["stats"]
+    check(s["host_hits"] >= 1 and s["cold_misses"] >= 1
+          and s["evictions"] >= 1,
+          f"swap {policy}: needs a host hit, a cold miss and an eviction: "
+          f"{s}")
+    check(len(res["ttft"]) == len(trace) and not s["failed_requests"],
+          f"swap {policy}: {len(res['ttft'])} of {len(trace)} served")
+    peak = be.stores[SWAP_GPU].pool.peak_used_mb
+    check(peak <= cap, f"swap {policy}: device store peaked at {peak} MB "
+          f"over the {cap} MB cap")
+    say(f"  policy {policy}: {s}; ttft ms "
+        f"{[round(x, 3) for _a, x, _c in res['ttft']]}; "
+        f"{len(res['loads'])} loads byte-equal on the card, "
+        f"{len(res['evictions'])} evictions left no device copy; stats, "
+        f"ttft and load times equal to the run without a backend; "
+        f"{wall:.2f} s")
+    for did, ep, n, t_sim, secs in res["puts"]:
+        say(f"    put {did} at {ep} (sim t {t_sim:.3f} ms): {n / 1e9:.3f}"
+            f" GB synthesised and written in {secs:.3f} s"
+            f"{' (a reload source missing on its host)' if t_sim else ''}")
+    rows = []
+    sims = iter(res["sim_loads"])
+    for rep in be.reports:
+        if rep.dst != SWAP_GPU:
+            continue
+        p = byname[rep.func]
+        n = nbytes_of(rep.size_mb)
+        first = next(ms for mb, ms in rep.events if mb >= p.layer_mb[0])
+        path = "host hit" if rep.src == host_of(SWAP_GPU) else "cold"
+        _f, t_sub, t_done = next(sims)
+        rows.append({"policy": policy, "model": p.name, "path": path,
+                     "src": rep.src, "bytes": n, "wall_ms": rep.wall_ms,
+                     "gb_s": n / rep.wall_ms / 1e6, "first_layer_ms": first,
+                     "first_layer_mb": p.layer_mb[0],
+                     "sim_ms": t_done - t_sub, "batches": rep.n_batches})
+        say(f"    reload {p.name} {n / 1e9:.3f} GB {path} "
+            f"({rep.src}->{rep.dst}): wall {rep.wall_ms:.1f} ms = "
+            f"{rows[-1]['gb_s']:.2f} GB/s, first layer "
+            f"({p.layer_mb[0]:.1f} MB) landed at {first:.1f} ms; "
+            f"simulated {rows[-1]['sim_ms']:.1f} ms")
+    for st in be.stores.values():
+        say(f"    store {st.name}: {st.slabs.shape[0] * 2} MiB "
+            f"{'on ' + str(st.slabs.device) if st.device else 'pinned'}, "
+            f"peak {st.pool.peak_used_mb:.0f} MB used, growth "
+            f"{st.grow_s:.3f} s")
+    pinned = sum(st.slabs.numel() for st in be.stores.values()
+                 if not st.device) + sum(r.buf.numel()
+                                         for r in be.rings.values())
+    device_peak = torch.cuda.max_memory_allocated()
+    say(f"    page-locked {pinned / 1e9:.2f} GB (stores + rings; reserved up"
+        f" front in {', '.join(f'{ep} {x:.3f} s' for ep, x in grow.items())}"
+        f"), device peak {device_peak / 1e9:.2f} GB (the checks' oracles "
+        f"included), host peak RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} GB")
+    return {"stats": s, "ttft": res["ttft"], "reloads": rows,
+            "pinned_gb": pinned / 1e9, "device_peak_gb": device_peak / 1e9,
+            "yardsticks": swap_yardsticks(be, profiles)
+            if policy == "lru" else None}
+
+
+def swap_phase(say, scale: float = 1.0) -> dict:
+    """Phase 11: the swap tier at real checkpoint sizes (``scale`` < 1
+    shrinks the checkpoints, the caps and the gaps alike, for a short
+    test), under both policies, on the card and without a backend."""
+    import gc
+    import torch
+    profiles = swap_profiles(scale)
+    check(scale != 1.0 or ([round(p.total_mb, 1) for p, _ in profiles]
+                           == [5450.7, 3554.3, 817.2]
+                           and profiles[0][0].n_layers == 41),
+          f"profiles: {[(p.name, p.n_layers, p.total_mb) for p, _ in profiles]}")
+    trace = swap_trace([p.name for p, _ in profiles], iat=SWAP_IAT_MS * scale)
+    check_ckpt = _ckpt_check({})
+    out = {"reloads": []}
+    for policy in ("slo", "lru"):
+        res = swap_policy(policy, profiles, trace, check_ckpt, say,
+                          cap=SWAP_CAP_MB * scale,
+                          host_cache=SWAP_HOST_MB * scale)
+        out["reloads"] += res.pop("reloads")
+        out[policy] = res
+        gc.collect()                  # the policy's backend, stores, rings
+        torch.cuda.empty_cache()
+    out["yardsticks"] = out["lru"].pop("yardsticks")
+    out["slo"].pop("yardsticks")
+    for name, y in out["yardsticks"].items():
+        say(f"    {name}: {y['bytes'] / 1e9:.3f} GB, bound {y['bound_ms']:.1f}"
+            f" ms at 64 GB/s, plain copy_ {y['copy_ms']:.1f} ms = "
+            f"{y['bytes'] / y['copy_ms'] / 1e6:.2f} GB/s, host staging "
+            f"copy alone {y['stage_ms']:.1f} ms = "
+            f"{y['bytes'] / y['stage_ms'] / 1e6:.2f} GB/s")
+    return out
+
+
 # --------------------------------------------------------------- main ---
 def main() -> int:
     import torch
@@ -836,6 +1328,10 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {kind} "
         f"count {torch.cuda.device_count()}")
     say(card)
+    probe = "synth-probe"
+    check(np.array_equal(synth_payload(probe, 4099), np.random.default_rng(
+        zlib.crc32(probe.encode())).integers(0, 256, 4099, dtype=np.uint8)),
+        "synth_payload differs from numpy's uint8 draw")
 
     t0 = time.perf_counter()
     built = _build.build_all([K.SOURCE, FK.SOURCE, PK.SOURCE])
@@ -998,6 +1494,33 @@ def main() -> int:
           "paged_attention never launched on the serving path")
     launches.update(serving)
 
+    # ---- the chaos run, counted from here ---------------------------------
+    t0 = time.perf_counter()
+    say("[10] chaos with real bytes: DRIVING + TRAFFIC on cluster(2) under "
+        "a seeded schedule of link, brownout, node and host faults")
+    K.gather_chunks.launches = K.scatter_chunks.launches = 0
+    chaos = chaos_phase(check_bytes, say)
+    by_phase = {"4-6": (launches["gather_chunks"], launches["scatter_chunks"]),
+                "10": (K.gather_chunks.launches, K.scatter_chunks.launches)}
+    say(f"  {time.perf_counter() - t0:.2f} s")
+    check(all(by_phase["10"]), f"a copy kernel never launched in the chaos "
+          f"run: {by_phase['10']}")
+
+    # ---- the swap tier, counted from here ---------------------------------
+    t0 = time.perf_counter()
+    say(f"[11] the swap tier: {', '.join(a for a, _ in SWAP_MODELS)} "
+        f"swapped through {SWAP_GPU} under a {SWAP_CAP_MB:.0f} MB cap")
+    K.gather_chunks.launches = K.scatter_chunks.launches = 0
+    swap = swap_phase(say)
+    by_phase["11"] = (K.gather_chunks.launches, K.scatter_chunks.launches)
+    say(f"  {time.perf_counter() - t0:.2f} s")
+    check(by_phase["11"][1] > 0,
+          "scatter_chunks never launched in the swap tier's reloads")
+    for i, name in enumerate(("gather_chunks", "scatter_chunks")):
+        launches[name] = sum(v[i] for v in by_phase.values())
+    say(f"  copy-kernel launches by phase (gather, scatter): {by_phase}; "
+        f"in all {launches['gather_chunks']}, {launches['scatter_chunks']}")
+
     replaces = {"gather_chunks": "src/repro/kernels/chunked_copy/kernel.py:37",
                 "scatter_chunks": "src/repro/kernels/chunked_copy/kernel.py:59",
                 "flash_attention":
@@ -1042,6 +1565,9 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], **extra})
     say(json.dumps({"serving": full}))
+    say(json.dumps({"chaos": {k: chaos[k] for k in (
+        "faults", "fired", "retries", "failures", "recovered_stages",
+        "replans", "checked", "held")}, "swap": swap}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -10,6 +10,11 @@ package's framework-free modules; the real data plane is
     LinkSim (linksim.py)        — discrete-event link timing model
     ElasticPool (elastic_pool.py), QueueAwareMigrator (migration.py)
     PcieScheduler (pcie_scheduler.py), CircularPinnedBuffer (pinned_buffer.py)
+    FaultSchedule / FaultInjector (faults.py)
+                                — seeded deterministic chaos harness
+    ShardedLinkSim / ShardedTube (shard.py)
+                                — the simulator sharded by node (CPU only:
+                                  parallel mode forks worker processes)
     TorchBackend (backend_torch.py)
                                 — real bytes on the card: slab stores in
                                   device memory, page-locked host staging,
@@ -19,3 +24,4 @@ from repro_torch.core.topology import Topology, make_topology
 from repro_torch.core.pathfinder import PathFinder
 from repro_torch.core.linksim import LinkSim
 from repro_torch.core.transfer import TransferEngine, TransferPlan, RecoveryPolicy
+from repro_torch.core.faults import Fault, FaultInjector, FaultSchedule

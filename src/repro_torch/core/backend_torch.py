@@ -44,8 +44,10 @@ and never touches the LinkSim event stream.
 """
 from __future__ import annotations
 
+import os
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -64,14 +66,45 @@ from repro_torch.kernels.chunked_copy.pipeline import (
 )
 
 MB = 2 ** 20
+#: synth_payload's parallel draw: threads, and the 64-bit words a thread
+#: draws at a time (32 MiB; no thread is given fewer)
+_SYNTH_THREADS = min(8, os.cpu_count() or 1)
+_SYNTH_SLICE_WORDS = 1 << 22
 
 
 def synth_payload(data_id: str, nbytes: int) -> np.ndarray:
     """Deterministic payload bytes for an object id — the oracle both
-    the backend and the conformance tests regenerate independently."""
+    the backend and the conformance tests regenerate independently.
+
+    The bytes are ``default_rng(crc32(id)).integers(0, 256, nbytes,
+    uint8)``, as the JAX package draws them.  For a full-range uint8
+    draw numpy takes one 32-bit output per four bytes, low byte first,
+    and PCG64 splits each 64-bit output low half first, so the same
+    bytes are the generator's raw 64-bit stream read as little-endian
+    bytes.  That stream is drawn in parallel: slice k is a fresh
+    generator advanced to the slice's first word (a checkpoint is
+    gigabytes; one thread draws well under 1 GB/s)."""
     seed = zlib.crc32(data_id.encode())
-    return np.random.default_rng(seed).integers(
-        0, 256, nbytes, dtype=np.uint8)
+    words = -(-nbytes // 8)
+    out = np.empty(words * 8, np.uint8)
+    w = out.view("<u8")
+    parts = min(_SYNTH_THREADS, max(1, words // _SYNTH_SLICE_WORDS))
+    step = -(-words // parts)
+
+    def fill(k: int):
+        lo, hi = k * step, min(words, (k + 1) * step)
+        gen = np.random.PCG64(seed)
+        gen.advance(lo)
+        for s in range(lo, hi, _SYNTH_SLICE_WORDS):   # bounded temporaries
+            e = min(hi, s + _SYNTH_SLICE_WORDS)
+            w[s:e] = gen.random_raw(e - s)
+
+    if parts == 1:
+        fill(0)
+    else:
+        with ThreadPoolExecutor(parts) as ex:
+            list(ex.map(fill, range(parts)))
+    return out[:nbytes]
 
 
 def nbytes_of(size_mb: float) -> int:
@@ -115,11 +148,20 @@ def _host_put(pool: torch.Tensor, rows, src: torch.Tensor):
         pool[_index(rows)] = src
 
 
-def _chunk_rows(payload: np.ndarray) -> np.ndarray:
-    """Reshape flat bytes to (rows, SLAB_BYTES), zero-padding the tail."""
+def _chunk_rows(payload: np.ndarray, out: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """Flat bytes as (rows, SLAB_BYTES), the tail zero-padded: written
+    into ``out`` when given, else a view when the bytes fill whole rows,
+    else one copy."""
     rows = -(-payload.nbytes // SLAB_BYTES)
-    out = np.zeros((rows, SLAB_BYTES), np.uint8)
-    out.reshape(-1)[:payload.nbytes] = payload
+    src = torch.from_numpy(payload)
+    if out is None:
+        if payload.nbytes == rows * SLAB_BYTES:
+            return src.view(rows, SLAB_BYTES)
+        out = torch.empty((rows, SLAB_BYTES), dtype=torch.uint8)
+    flat = out.view(-1)
+    flat[:payload.nbytes].copy_(src)
+    flat[payload.nbytes:].zero_()
     return out
 
 
@@ -200,7 +242,12 @@ class SlabStore:
         """Materialize host bytes into the store (the write path)."""
         payload = np.ascontiguousarray(payload, dtype=np.uint8).ravel()
         obj = self.alloc(data_id, payload.nbytes)
-        chunks = torch.from_numpy(_chunk_rows(payload))
+        run = _run(obj.rows)
+        if not self.device and run is not None:
+            # one run of host rows: the bytes land in place, no staging
+            _chunk_rows(payload, self.slabs[run])
+            return obj
+        chunks = _chunk_rows(payload)
         if self.device:
             scatter(self.slabs, chunks.to(self.place), obj.rows)
             wait(record(self.slabs))
@@ -358,6 +405,16 @@ class TorchBackend:
             r = HostRing(host, self.ring_mb, pin=self.pin)
             self.rings[host] = r
         return r
+
+    def reserve(self, endpoint: str, size_mb: float) -> float:
+        """Grow an endpoint's store now to hold at least ``size_mb`` (at
+        most its capacity), so that no later transfer pays the growth
+        inside its wall time.  Returns the seconds the growth took."""
+        st = self.store_for(endpoint)
+        before = st.grow_s
+        if st.pool.capacity_mb < size_mb:
+            st._grow_for(size_mb - st.pool.used_mb - BLOCK_MB)
+        return st.grow_s - before
 
     def put_object(self, data_id: str, endpoint: str,
                    payload: np.ndarray | None = None,

@@ -6,12 +6,15 @@ at the architecture's full width (``--smoke`` takes ``.reduced()``),
 and/or replays a serverless workflow trace over the port's FaaSTube
 data plane to report the tube-timed data-passing budget per request.
 The model runs on ``cuda`` unless ``--device cpu`` asks for the CPU (the
-kernels' plain versions); without a card it raises.
+kernels' plain versions); without a card it raises.  ``--w8a16`` rounds
+the weights through ``serving/wquant.py``'s int8 quantization first, as
+the JAX launcher does.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b \
       --smoke --device cpu --batch 4 --prompt-len 16 --max-new 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b --w8a16
   PYTHONPATH=src python -m repro_torch.launch.serve --workflow traffic \
       --system faastube --requests 16
 """
@@ -28,17 +31,17 @@ def serve_model(args):
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine, resolve_device
 
-    if args.w8a16:
-        raise NotImplementedError(
-            "--w8a16 waits for serving/wquant.py (ROADMAP.md §1, model "
-            "stack item 3)")
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    device = resolve_device(args.device)
+    params = M.init_params(cfg, 0, device)
+    if args.w8a16:
+        from repro_torch.serving.wquant import dequant_tree, quantize_tree
+        params = dequant_tree(quantize_tree(params, min_size=1024))
     shape = ShapeSpec("serve", args.prompt_len + args.max_new,
                       args.batch, "decode")
-    device = resolve_device(args.device)
-    eng = Engine(cfg, shape, M.init_params(cfg, 0, device), device=device)
+    eng = Engine(cfg, shape, params, device=device)
     toks = torch.arange(args.batch * args.prompt_len,
                         dtype=torch.int32).reshape(args.batch, -1) % 64
     out, _ = eng.generate({"tokens": toks}, max_new_tokens=args.max_new)

@@ -203,6 +203,8 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
                 "--batch", "2", "--prompt-len", "12", "--max-new", "3"])
     out = capsys.readouterr().out
     assert "gemma3-27b: generated (2, 3) tokens" in out and "on cpu" in out
-    with pytest.raises(NotImplementedError, match="wquant"):
-        serve.main(["--arch", "minicpm-2b", "--smoke", "--device", "cpu",
-                    "--w8a16"])
+    serve.main(["--arch", "minicpm-2b", "--smoke", "--device", "cpu",
+                "--w8a16", "--batch", "2", "--prompt-len", "12",
+                "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "minicpm-2b: generated (2, 3) tokens" in out and "on cpu" in out

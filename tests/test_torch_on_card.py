@@ -140,6 +140,71 @@ def test_backend_on_card_matches_cpu(cuda_device, case, staging):
     assert [mb for mb, _ in card.events] == [mb for mb, _ in cpu.events]
 
 
+# ------------------------------------- chaos and the swap tier on the card -
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def _synth_equal(be, did, ep, mb):
+    np.testing.assert_array_equal(be.read_object(did, ep),
+                                  synth_payload(did, nbytes_of(mb)))
+
+
+@pytest.mark.cuda
+def test_chaos_run_on_card_matches_cpu(cuda_device):
+    """``chip_smoke.py``'s phase 10 at a quarter of the paper's sizes
+    (seed 34: every fault kind fires, one transfer re-plans): the trace
+    equals the run without a backend, bytes are checked after every
+    fault, at the end and after the re-plan, and the card's backend keeps
+    the same objects as the CPU's."""
+    C = _chip_smoke()
+    plain = C.chaos_run(None, None, scale=0.25, seed=34)
+    held = {}
+    for device in ("cuda", "cpu"):
+        be = TorchBackend(device=device, store_mb=1024.0, host_mb=2048.0)
+        before = K.gather_chunks.launches, K.scatter_chunks.launches
+        res = C.chaos_run(be, _synth_equal, scale=0.25, seed=34)
+        for key in ("trace", "requests", "stats", "fired", "retries",
+                    "n_events", "replans", "live"):
+            assert res[key] == plain[key], (device, key)
+        assert res["replans"] and res["checked"] > 0
+        held[device] = {ep: sorted(st.objects)
+                        for ep, st in be.stores.items() if st.objects}
+        if device == "cuda":
+            assert K.gather_chunks.launches > before[0]
+            assert K.scatter_chunks.launches > before[1]
+            for st in be.stores.values():
+                assert st.slabs.is_cuda if st.device else st.slabs.is_pinned()
+    assert held["cuda"] == held["cpu"]
+
+
+@pytest.mark.cuda
+def test_swap_tier_on_card(cuda_device):
+    """``chip_smoke.py``'s phase 11 with the checkpoints, caps and gaps
+    shrunk 64 times: both policies, every reload byte-equal on the card,
+    no device copy after an eviction, stats and first-token times equal
+    to the run without a backend (the phase checks all of it), host hits
+    and cold reloads both timed."""
+    C = _chip_smoke()
+    before = K.scatter_chunks.launches
+    out = C.swap_phase(lambda *a: None, scale=1 / 64)
+    assert K.scatter_chunks.launches > before
+    paths = {(r["policy"], r["path"]) for r in out["reloads"]}
+    assert paths == {(p, k) for p in ("slo", "lru")
+                     for k in ("host hit", "cold")}
+    assert all(r["wall_ms"] > 0 and 0 < r["first_layer_ms"] <= r["wall_ms"]
+               for r in out["reloads"])
+    assert set(out["yardsticks"]) == {"minicpm-2b", "qwen2-vl-2b",
+                                      "whisper-medium"}
+
+
 # --------------------------------------------------------- attention ------
 
 @pytest.mark.cuda
