@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 It imports the port (``src/repro_torch``) only, builds the hand-written
-CUDA kernels from the checkout's sources, and runs eleven phases:
+CUDA kernels from the checkout's sources, and runs twelve phases:
 
 1. environment: torch / CUDA versions, the card's name and power limit,
    and ``synth_payload`` against numpy's own uint8 draw;
@@ -24,15 +24,22 @@ CUDA kernels from the checkout's sources, and runs eleven phases:
    ``TransferEngine.compile`` and ``TorchBackend.execute``;
 6. spill and reload of 128 MB objects at the default 1024 MB store cap;
 7. the attention kernels against their plain versions on the card, at
-   MiniCPM-2B's shapes and at odd ones (paged: many spans, a length on a
-   span boundary, group 8 at D=128, pages of 8), and their times beside
-   their bound, their plain versions' and the library call's (flash and
-   paged also at Qwen2-72B's heads, GQA at D=128; paged also beside SDPA
-   over the same K/V as a contiguous cache, a yardstick without the
-   gather);
-8. the serving path, reduced, in f32: ``Engine.generate`` for MiniCPM-2B
-   and Gemma3-27B (the sliding window) on the card against the same on
-   the CPU, with the same weights;
+   MiniCPM-2B's shapes and at odd ones (flash: not causal over Whisper's
+   1500 frames, 4 queries over them, group 6 at Qwen2-VL-2B's heads;
+   paged: many spans, a length on a span boundary, group 8 at D=128,
+   pages of 8; flash also at every shape phase 12 launches, derived
+   from its models' configs), and their times beside their bound, their plain
+   versions' and the library call's (flash and paged also at Qwen2-72B's
+   heads, GQA at D=128, flash also at Whisper-medium's encoder and
+   Qwen2-VL-2B's prefill; paged also beside SDPA over the same K/V as a
+   contiguous cache, a yardstick without the gather);
+8. the serving path, reduced, in f32: ``Engine.generate`` for MiniCPM-2B,
+   Gemma3-27B (the sliding window), Qwen2-VL-2B (M-RoPE, a vision
+   prefix), Whisper-medium (the encoder), DBRX-132B and Grok-1-314B
+   (MoE), Jamba-1.5-Large (Mamba, MoE, attention) and xLSTM-1.3B on the
+   card against the same on the CPU, with the same weights and inputs
+   (Whisper's encoder output too), and one flash launch per attention
+   layer in each prefill;
 9. the serving path at full width: ``Engine(minicpm-2b)`` in bf16 on the
    card, 8 requests of 1024 prompt tokens, 32 new tokens each; then the
    paged kernel over layer 0's KV cache cut into shuffled 128-token
@@ -52,12 +59,23 @@ CUDA kernels from the checkout's sources, and runs eleven phases:
     equal to the run without a backend, every reload's bytes equal on
     the card, no device copy after an eviction; each reload's wall time
     and first-layer landing beside the PCIe 5.0 bound and one plain
-    page-locked copy of the same bytes.
+    page-locked copy of the same bytes;
+12. the other families at full width in bf16 through ``Engine.generate``
+    (8 requests, 32 new tokens each), one function per model so that
+    nothing of one is held past it: Qwen2-VL-2B (28 layers, 1024
+    ``vision_embeds`` positions + 1024 text tokens), Whisper-medium
+    (24 + 24 layers, 1500 encoder frames, a 4-token prompt), xLSTM-1.3B
+    (48 layers, 1024 tokens), DBRX-132B cut to 4 layers and
+    Jamba-1.5-Large cut to its first 5 (1024 tokens each); prefill and
+    decode times, tokens/s, peak memory, one flash launch per attention
+    layer, for Qwen2-VL-2B and Whisper-medium 4 decode steps against
+    prefills of the same tokens (teacher-forced), and Whisper's encoder
+    output through the kernel against the plain attention.
 
 The data plane (phases 4-6), the serving path (phase 9), the chaos run
-(10) and the swap tier (11) are the main paths: the launch counters are
-set to 0 just before each and read just after it; the reads that check
-landed bytes are kept out of the counts.
+(10), the swap tier (11) and each model of phase 12 are the main paths:
+the launch counters are set to 0 just before each and read just after
+it; the reads that check landed bytes are kept out of the counts.
 Float32 matrix products stay in full f32 (TF32 off).  Any failed check
 raises and the script exits nonzero.  The second-to-last line is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -66,6 +84,8 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -433,8 +453,14 @@ PAGED_BF16_ROW_REL = 2 ** -6
 # (B, Hq, Hkv, Lq, Lkv, D, causal, window, q_offset, kv_offset):
 # MiniCPM-2B's prefill, a ragged length, GQA with a window, Lkv > Lq, the
 # reduced configs' D=16, rows that see no key (Lkv < Lq under a window),
-# queries after a cached prefix, kv_offset > q_offset (blind rows), and
-# GQA group 8 at D=128 with both offsets and a window under one kv tile
+# queries after a cached prefix, kv_offset > q_offset (blind rows),
+# GQA group 8 at D=128 with both offsets and a window under one kv tile,
+# Whisper-medium's encoder self-attention over its 1500 frames (not
+# causal), an attention of 4 queries over those 1500 frames (not causal,
+# Lq != Lkv: the shape a cross-attention over Whisper's frames takes,
+# although the reference's pattern makes no such layer, ROADMAP.md §3),
+# and GQA group 6 at D=128 (Qwen2-VL-2B's 12 query and 2 kv heads).
+# ``model_flash_cases`` adds every shape phase 12 launches.
 FLASH_CASES = [(8, 36, 36, 1024, 1024, 64, True, 0, 0, 0),
                (8, 36, 36, 1000, 1000, 64, True, 0, 0, 0),
                (2, 8, 2, 512, 512, 128, True, 64, 0, 0),
@@ -443,11 +469,20 @@ FLASH_CASES = [(8, 36, 36, 1024, 1024, 64, True, 0, 0, 0),
                (1, 4, 2, 100, 70, 32, True, 5, 0, 0),
                (2, 8, 8, 130, 300, 64, True, 0, 170, 0),
                (1, 4, 4, 200, 77, 64, True, 0, 0, 40),
-               (2, 16, 2, 300, 333, 128, True, 24, 40, 7)]
+               (2, 16, 2, 300, 333, 128, True, 24, 40, 7),
+               (2, 16, 16, 1500, 1500, 64, False, 0, 0, 0),
+               (2, 16, 16, 4, 1500, 64, False, 0, 0, 0),
+               (2, 12, 2, 2048, 2048, 128, True, 0, 0, 0)]
 #: Qwen2-72B's attention heads (configs/qwen2_72b.py: 64 query heads,
 #: 8 kv heads of 128) at a 2048-token causal prefill, batch 2: bound by
 #: the operations; timed in phase 7, not a model path
 QWEN_SHAPE = (2, 64, 8, 2048, 128)
+#: the flash kernel timed at two more model shapes, in bf16 (B, Hq, Hkv,
+#: L, D, causal): Whisper-medium's encoder over 1500 frames (16 heads of
+#: 64, not causal) and Qwen2-VL-2B's prefill (12 query, 2 kv heads of
+#: 128, 1024 vision + 1024 text positions), both at phase 12's batch of 8
+FLASH_MODEL_SHAPES = {"whisper-medium-encoder": (8, 16, 16, 1500, 64, False),
+                      "qwen2-vl-2b": (8, 12, 2, 2048, 128, True)}
 # (B, Hkv, group, D, page, NP, P): MiniCPM-2B's decode over 8 pages of 128
 # tokens, GQA group 4 at D=128, the reduced configs' D=16, many spans with
 # ragged lengths, group 8 at D=128 over many spans, and pages of 8 (eight
@@ -501,9 +536,34 @@ def _paged_errs(got, want) -> str:
             f"{PAGED_BF16_ROW_REL:.3g})")
 
 
+def model_flash_cases() -> list:
+    """The flash shapes that phase 12's generates launch, derived from
+    FULL_MODELS and the configs as the prefill runs them: one case
+    (B, Hq, Hkv, Lq, Lkv, D, causal, window, 0, 0) for each distinct
+    shape over the decoder's attention layers (self-attention over the
+    prompt, cross-attention over the encoder frames) and the encoder's."""
+    from repro_torch.models.blocks import block_pattern, enc_pattern, kind_meta
+    cases = {}
+    for arch, n_layers, prompt, _ in FULL_MODELS:
+        cfg = full_config(arch, n_layers)
+        head = (FULL_BATCH, cfg.n_heads, cfg.n_kv_heads)
+        D = cfg.resolved_head_dim
+        runs = [(k, prompt) for k in block_pattern(cfg)]
+        if cfg.enc_layers:
+            runs += [(k, WHISPER_FRAMES) for k in enc_pattern(cfg)]
+        for kind, L in runs:
+            meta = kind_meta(cfg, kind)
+            if meta["mixer"] in RECURRENT_MIXERS:
+                continue
+            cases[head + (L, L, D, meta["causal"], meta["window"], 0, 0)] = 1
+            if meta["cross"]:
+                cases[head + (L, WHISPER_FRAMES, D, False, 0, 0, 0)] = 1
+    return list(cases)
+
+
 def attention_cases() -> dict:
-    """Both attention kernels against their plain versions at every case,
-    f32 and bf16.  Returns the largest absolute difference per kernel and
+    """Both attention kernels against their plain versions at every case
+    (FLASH_CASES and ``model_flash_cases()`` for flash), f32 and bf16.  Returns the largest absolute difference per kernel and
     dtype, and the paged kernel's largest row-relative one in bf16 under
     ("paged_attention", "bfloat16 row-relative")."""
     import torch
@@ -515,7 +575,7 @@ def attention_cases() -> dict:
     worst = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).removeprefix("torch.")
-        for case in FLASH_CASES:
+        for case in FLASH_CASES + model_flash_cases():
             B, Hq, Hkv, Lq, Lkv, D, causal, window, q_off, kv_off = case
             kw = dict(causal=causal, window=window, q_offset=q_off,
                       kv_offset=kv_off)
@@ -592,9 +652,9 @@ def paged_work(q, k_pages, table, lens):
     return nbytes, 4 * Hq * D * live
 
 
-def flash_times(B, Hq, Hkv, L, D, gen) -> dict:
+def flash_times(B, Hq, Hkv, L, D, gen, causal: bool = True) -> dict:
     """The flash kernel, its plain version and SDPA (``enable_gqa``) at
-    one causal bf16 shape, with the bytes and flops the function needs."""
+    one bf16 shape, with the bytes and flops the function needs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -602,15 +662,18 @@ def flash_times(B, Hq, Hkv, L, D, gen) -> dict:
     bf = torch.bfloat16
     q = _rand((B, Hq, L, D), bf, gen)
     k, v = (_rand((B, Hkv, L, D), bf, gen) for _ in range(2))
-    nbytes, flops = flash_work(B, Hq, Hkv, L, L, D, True, 0, 2)
+    nbytes, flops = flash_work(B, Hq, Hkv, L, L, D, causal, 0, 2)
     heads = f"Hq=Hkv={Hq}" if Hq == Hkv else f"Hq={Hq} Hkv={Hkv}"
     return {
-        "ms": device_ms([lambda: FK.flash_attention(q, k, v, causal=True)] * 2),
-        "plain_ms": device_ms([lambda: attention_ref(q, k, v, causal=True)]),
+        "ms": device_ms([lambda: FK.flash_attention(q, k, v,
+                                                    causal=causal)] * 2),
+        "plain_ms": device_ms([lambda: attention_ref(q, k, v,
+                                                     causal=causal)]),
         "library_ms": device_ms([lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=Hq != Hkv)] * 2),
+            q, k, v, is_causal=causal, enable_gqa=Hq != Hkv)] * 2),
         "bytes": nbytes, "flops": flops,
-        "shape": f"B={B} {heads} Lq=Lkv={L} D={D} causal bf16"}
+        "shape": f"B={B} {heads} Lq=Lkv={L} D={D} "
+                 f"{'causal' if causal else 'not causal'} bf16"}
 
 
 def paged_times(B, Hq, Hkv, D, page, NP, gen) -> dict:
@@ -664,15 +727,20 @@ def paged_times(B, Hq, Hkv, D, page, NP, gen) -> dict:
 
 def attention_times() -> dict:
     """Device times in bf16 (CUDA graph replay, CUDA events) at
-    MiniCPM-2B's prefill and decode shapes and at Qwen2-72B's heads,
-    beside the bound, the plain version and the library call (SDPA for
-    flash; paged attention has no single PyTorch call)."""
+    MiniCPM-2B's prefill and decode shapes, at Qwen2-72B's heads and
+    (flash) at FLASH_MODEL_SHAPES, beside the bound, the plain version
+    and the library call (SDPA for flash; paged attention has no single
+    PyTorch call)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(CASE_SEED + 1)
     B, H, L, D = 8, 36, 1024, 64
     B_q, Hq_q, Hkv_q, D_q, page_q, NP_q = QWEN_PAGED
     res = {"flash_attention": flash_times(B, H, H, L, D, gen),
            "flash_attention/qwen2-72b": flash_times(*QWEN_SHAPE, gen),
+           **{f"flash_attention/{name}": flash_times(
+               B_m, Hq_m, Hkv_m, L_m, D_m, gen, causal=c)
+              for name, (B_m, Hq_m, Hkv_m, L_m, D_m, c)
+              in FLASH_MODEL_SHAPES.items()},
            "paged_attention": paged_times(B, H, H, D, 128, L // 128, gen),
            "paged_attention/qwen2-72b": paged_times(
                B_q, Hq_q, Hkv_q, D_q, page_q, NP_q, gen)}
@@ -688,49 +756,96 @@ def attention_times() -> dict:
 #: reduced f32 prefill logits, card (kernels) against CPU (plain
 #: versions), same weights: summation order only, logits of order 3
 REDUCED_TOL = 1e-4
+#: xLSTM-1.3B's bound instead: its exponential gating amplifies the
+#: order of f32 sums (tests/test_consistency.py holds it LOOSE); on the
+#: CPU the port differs from the JAX package by at most 1.0e-4 on its
+#: logits (tests/test_torch_xlstm.py), and the card's summation order is
+#: a third one
+REDUCED_TOL_XLSTM = 1e-3
+#: phase 8's architectures: the four attention kinds' representatives
+#: and the six other families (Grok-1-314B takes DBRX's MoE path and runs
+#: here only)
+REDUCED_ARCHS = ("minicpm-2b", "gemma3-27b", "qwen2-vl-2b", "whisper-medium",
+                 "dbrx-132b", "grok-1-314b", "jamba-1.5-large-398b",
+                 "xlstm-1.3b")
+
+
+#: the mixers that run no attention
+RECURRENT_MIXERS = ("mamba", "mlstm", "slstm")
+
+
+def attention_layers(cfg) -> int:
+    """Layers whose prefill runs the flash kernel once: every attention
+    mixer of the decoder, and every encoder layer.  (The JAX package's
+    ``block_pattern`` makes no decoder layer ``dec_attn``, so Whisper's
+    decoder runs no cross-attention: ROADMAP.md §3.)"""
+    from repro_torch.models.blocks import block_pattern, kind_meta
+    return cfg.enc_layers + sum(
+        kind_meta(cfg, k)["mixer"] not in RECURRENT_MIXERS
+        for k in block_pattern(cfg))
 
 
 def reduced_serving(say) -> float:
-    """``Engine.generate`` on reduced f32 MiniCPM-2B and Gemma3-27B, on
-    the card and on the CPU with the same weights (made on the CPU, then
-    copied): prefill logits within REDUCED_TOL, greedy tokens equal."""
+    """``Engine.generate`` on every family reduced, in f32, on the card
+    and on the CPU with the same weights (made on the CPU, then copied)
+    and the same inputs (``io.synthetic_batch``, cast to f32): prefill
+    logits within REDUCED_TOL (xLSTM: REDUCED_TOL_XLSTM), greedy tokens
+    equal, and one flash launch per attention layer in each prefill."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import io
     from repro_torch.models import model as M
     from repro_torch.models import param as PM
     from repro_torch.serving.engine import Engine
     worst = 0.0
-    for arch in ("minicpm-2b", "gemma3-27b"):
+    for arch in REDUCED_ARCHS:
         cfg = dataclasses.replace(get_arch(arch).reduced(), cache_dtype="f32")
         host = PM.tree_map(lambda t: t.float(),
                            M.init_params(cfg, CASE_SEED, "cpu"))
         card = PM.tree_map(lambda t: t.to("cuda"), host)
-        toks = torch.from_numpy(np.random.default_rng(CASE_SEED).integers(
-            0, cfg.vocab_size, (2, 16), dtype=np.int32))
+        batch = io.synthetic_batch(cfg, ShapeSpec("t", 16, 2, "train"),
+                                   CASE_SEED, "cpu")
+        batch = {k: v.float() if v.is_floating_point() else v
+                 for k, v in batch.items()}
         shape = ShapeSpec("serve", 24, 2, "decode")
-        runs = {}
+        runs, enc = {}, {}
         for device, params in (("cpu", host), ("cuda", card)):
             before = FK.flash_attention.launches
             eng = Engine(cfg, shape, params, device=device)
-            logits, _ = eng.prefill({"tokens": toks})
-            out, _ = eng.generate({"tokens": toks}, max_new_tokens=8)
+            logits, _ = eng.prefill(batch)
+            out, _ = eng.generate(batch, max_new_tokens=8)
             runs[device] = (logits.cpu(), out.cpu(),
                             FK.flash_attention.launches - before)
+            if cfg.enc_layers:
+                # the decoder reads no encoder output (no dec_attn layer):
+                # hold the encoder itself
+                enc[device] = M._run_encoder(
+                    cfg, eng.ctx, params, batch["frames"].to(device)).cpu()
         err = _abs_err(runs["cuda"][0], runs["cpu"][0])
-        check(err <= REDUCED_TOL,
-              f"{arch} reduced: prefill logits differ by {err}")
+        tol = REDUCED_TOL_XLSTM if arch == "xlstm-1.3b" else REDUCED_TOL
+        check(err <= tol, f"{arch} reduced: prefill logits differ by {err}")
+        enc_note = ""
+        if enc:
+            enc_err = _abs_err(enc["cuda"], enc["cpu"])
+            check(enc_err <= REDUCED_TOL, f"{arch} reduced: encoder "
+                  f"outputs differ by {enc_err}")
+            enc_note = (f", encoder output max_abs_err {enc_err:.3g} "
+                        f"(limit {REDUCED_TOL:g})")
         check(torch.equal(runs["cuda"][1], runs["cpu"][1]),
               f"{arch} reduced: greedy tokens differ")
-        check(runs["cpu"][2] == 0 and runs["cuda"][2] == 2 * cfg.n_layers,
+        n_attn = attention_layers(cfg)
+        check(runs["cpu"][2] == 0 and runs["cuda"][2] == 2 * n_attn,
               f"{arch} reduced: flash launches {runs['cpu'][2]} on the CPU, "
-              f"{runs['cuda'][2]} on the card")
+              f"{runs['cuda'][2]} on the card, not 2 x {n_attn}")
         worst = max(worst, err)
-        say(f"  {arch} reduced f32 ({cfg.n_layers} layers): prefill logits "
-            f"max_abs_err {err:.3g}, 8 greedy tokens equal, "
-            f"{runs['cuda'][2]} flash launches on the card")
+        say(f"  {arch} reduced f32 ({cfg.n_layers} layers"
+            f"{f' + {cfg.enc_layers} encoder' if cfg.enc_layers else ''}): "
+            f"prefill logits max_abs_err {err:.3g} (limit {tol:g})"
+            f"{enc_note}, 8 greedy tokens equal, {runs['cuda'][2]} flash launches on the card "
+            f"(2 prefills x {n_attn} attention layers)")
     return worst
 
 
@@ -826,6 +941,213 @@ def full_width(say) -> dict:
     say(f"  paged_attention over layer 0's cache in {n} shuffled pages: "
         f"{_paged_errs(got, want)} against decode_attention")
     return res
+
+
+# ------------------------------------------------------------ phase 12 ---
+#: the other families at full width in bf16 through ``Engine.generate``:
+#: (arch, layers kept (None: the published depth), prompt tokens, whether
+#: to hold 4 decode steps against a teacher-forced prefill).  8 requests,
+#: 32 new tokens each.  Qwen2-VL-2B's prompt is 1024 ``vision_embeds``
+#: positions then 1024 text tokens; Whisper-medium's is 1500 encoder
+#: frames (its 30-s window after the conv stem, arXiv:2212.04356 §2.2)
+#: and 4 decoder tokens; DBRX-132B and Jamba-1.5-Large are cut in depth
+#: to fit one card (Jamba's first 5 layers: four Mamba, two of them MoE,
+#: and the attention layer at index 4)
+FULL_MODELS = (("qwen2-vl-2b", None, 2048, True),
+               ("whisper-medium", None, 4, True),
+               ("xlstm-1.3b", None, 1024, False),
+               ("dbrx-132b", 4, 1024, False),
+               ("jamba-1.5-large-398b", 5, 1024, False))
+WHISPER_FRAMES = 1500
+#: tests/test_consistency.py's bf16 production bound on decode logits
+#: against a teacher-forced prefill of the same tokens
+TF_RELNORM = 0.10
+TF_STEPS = 4
+#: the same bf16 bound on Whisper's encoder output, flash kernel against
+#: the plain attention
+ENC_RELNORM = TF_RELNORM
+
+
+def full_batch(cfg, prompt: int) -> dict:
+    """Phase 12's inputs on the card from ``io.synthetic_batch``: tokens,
+    and Whisper's frames or Qwen2-VL's vision prefix, in bf16."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import io
+    if cfg.enc_layers:
+        batch = io.synthetic_batch(
+            cfg, ShapeSpec("t", 2 * WHISPER_FRAMES, FULL_BATCH, "prefill"),
+            CASE_SEED)
+        return dict(batch, tokens=batch["tokens"][:, :prompt].contiguous())
+    return io.synthetic_batch(
+        cfg, ShapeSpec("t", prompt, FULL_BATCH, "prefill"), CASE_SEED)
+
+
+def teacher_forced(cfg, eng, batch, forced) -> list:
+    """Prefill the prompt, then decode the ``forced`` tokens (B, n) one
+    by one; hold each step's logits against the last-position logits of
+    a prefill of the prompt and the forced tokens up to that step.
+    Returns each step's relnorm ||decode - prefill|| / ||prefill||."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import extend_caches
+    prompt = batch["tokens"].shape[1]
+    n = forced.shape[1]
+    _, caches = M.prefill(cfg, eng.ctx, eng.params, batch)
+    caches = extend_caches(cfg, caches, prompt + n)
+    rel = []
+    for i in range(n):
+        lg, caches = M.decode_step(cfg, eng.ctx, eng.params, caches,
+                                   forced[:, i:i + 1], prompt + i)
+        toks = torch.cat([batch["tokens"], forced[:, :i + 1]], dim=1)
+        ref, _ = M.prefill(cfg, eng.ctx, eng.params, dict(batch, tokens=toks))
+        rel.append(_relnorm(lg, ref))
+    return rel
+
+
+def _relnorm(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-9))
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Within it, the port's prefill attention on the card takes the
+    plain version (``attention_ref``) instead of the kernel: the
+    reference side of a check, never a path of the port."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    kernel = ops.attention
+    ops.attention = lambda q, k, v, **kw: attention_ref(q, k, v, **kw)
+    try:
+        yield
+    finally:
+        ops.attention = kernel
+
+
+def encoder_relnorm(cfg, eng, frames) -> float:
+    """The encoder's output on the card through the flash kernel against
+    the same encoder with the plain attention: the decoder reads no
+    encoder output (no ``dec_attn`` layer), so no logit reaches it."""
+    from repro_torch.models import model as M
+    got = M._run_encoder(cfg, eng.ctx, eng.params, frames)
+    with plain_attention():
+        want = M._run_encoder(cfg, eng.ctx, eng.params, frames)
+    return _relnorm(got, want)
+
+
+def full_config(arch, n_layers):
+    """Phase 12's config: the published one, cut to ``n_layers``."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+
+
+def full_model(arch, n_layers, prompt, teacher, say) -> dict:
+    """One model of phase 12 at full width in bf16 on the card: random
+    weights from CASE_SEED, ``Engine.generate`` of FULL_NEW tokens for
+    FULL_BATCH requests, each prefill and decode step timed on the host
+    clock after a device synchronise.  Everything it allocates is freed
+    when it returns."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.serving.engine import Engine
+    cfg = full_config(arch, n_layers)
+    B, new = FULL_BATCH, FULL_NEW
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, CASE_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    batch = full_batch(cfg, prompt)
+    eng = Engine(cfg, ShapeSpec("serve", prompt + new, B, "decode"), params)
+    times = {"prefill": [], "decode": []}
+    finite = []
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = fn(*args)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t)
+            finite.append(bool(torch.isfinite(logits).all()))
+            return logits, caches
+        return run
+
+    eng.prefill = timed("prefill", eng.prefill)
+    eng.decode = timed("decode", eng.decode)
+    torch.cuda.reset_peak_memory_stats()
+    FK.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out, caches = eng.generate(batch, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FK.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    del caches
+    check(tuple(out.shape) == (B, new) and out.dtype == torch.int32,
+          f"{arch}: tokens {tuple(out.shape)} {out.dtype}")
+    check(bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+          f"{arch}: token ids out of range")
+    check(len(finite) == new and all(finite), f"{arch}: non-finite logits")
+    n_attn = attention_layers(cfg)
+    check(launches == n_attn, f"{arch}: {launches} flash launches in the "
+          f"generate, not one per attention layer ({n_attn})")
+    dec = sorted(times["decode"])
+    res = {"layers": cfg.n_layers, "encoder_layers": cfg.enc_layers,
+           "params": PM.count_params(M.model_specs(cfg)),
+           "prompt": prompt, "init_s": init_s,
+           "init_peak_gb": init_peak / 1e9,
+           "prefill_ms": times["prefill"][0] * 1e3,
+           "decode_ms_median": dec[len(dec) // 2] * 1e3,
+           "decode_tok_s": B * len(dec) / sum(dec),
+           "generate_s": wall, "tok_s": B * new / wall,
+           "peak_gb": peak / 1e9, "flash_launches": launches}
+    extra = ""
+    if teacher:
+        rel = teacher_forced(cfg, eng, batch, out[:, :TF_STEPS])
+        check(max(rel) < TF_RELNORM, f"{arch}: decode against the teacher-"
+              f"forced prefill, relnorm {rel} (limit {TF_RELNORM})")
+        res["tf_relnorm"] = rel
+        extra = (f"; {TF_STEPS} decode steps against a teacher-forced "
+                 f"prefill: relnorm {max(rel):.4f} (limit {TF_RELNORM})")
+    if cfg.enc_layers:
+        rel = encoder_relnorm(cfg, eng, batch["frames"])
+        check(rel < ENC_RELNORM, f"{arch}: encoder output through the "
+              f"kernel against the plain attention, relnorm {rel} (limit "
+              f"{ENC_RELNORM})")
+        res["encoder_relnorm"] = rel
+        extra += (f"; encoder output against the plain attention: relnorm "
+                  f"{rel:.4f} (limit {ENC_RELNORM})")
+    inputs = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+    say(f"  {arch} full width bf16, {cfg.n_layers} layers"
+        f"{f' + {cfg.enc_layers} encoder' if cfg.enc_layers else ''}, "
+        f"{res['params'] / 1e9:.3f} B params (init {init_s:.2f} s, peak "
+        f"{res['init_peak_gb']:.2f} GB), {inputs}, {new} new: prefill "
+        f"{res['prefill_ms']:.2f} ms, decode step median "
+        f"{res['decode_ms_median']:.3f} ms, {res['decode_tok_s']:.1f} decode "
+        f"tok/s, generate {wall:.3f} s = {res['tok_s']:.1f} tok/s, peak "
+        f"{res['peak_gb']:.2f} GB, logits finite, ids in range, "
+        f"{launches} flash launches{extra}")
+    return res
+
+
+def full_models(say) -> dict:
+    """Phase 12: each model in its own call of ``full_model``, so that
+    nothing of one is held while the next is made."""
+    import gc
+    import torch
+    out = {}
+    for arch, n_layers, prompt, teacher in FULL_MODELS:
+        out[arch] = full_model(arch, n_layers, prompt, teacher, say)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------- phases 10-11 ---
@@ -1303,6 +1625,7 @@ def swap_phase(say, scale: float = 1.0) -> dict:
 
 # --------------------------------------------------------------- main ---
 def main() -> int:
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1450,7 +1773,8 @@ def main() -> int:
     t0 = time.perf_counter()
     attn_err = attention_cases()
     say(f"[7] attention kernels match their plain versions at "
-        f"{len(FLASH_CASES)} flash and {len(PAGED_CASES)} paged shapes, "
+        f"{len(FLASH_CASES)} + {len(model_flash_cases())} (phase 12's: "
+        f"{model_flash_cases()}) flash and {len(PAGED_CASES)} paged shapes, "
         f"f32 and bf16; max_abs_err (paged bf16 also row-relative) "
         f"{ {f'{k[0]}/{k[1]}': v for k, v in attn_err.items()} }")
     attn = attention_times()
@@ -1520,6 +1844,26 @@ def main() -> int:
         launches[name] = sum(v[i] for v in by_phase.values())
     say(f"  copy-kernel launches by phase (gather, scatter): {by_phase}; "
         f"in all {launches['gather_chunks']}, {launches['scatter_chunks']}")
+    # the data plane's stores (phases 4-6) on the card go before phase 12
+    del tube, tube6, be
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the other families at full width, counted per model ------------
+    t0 = time.perf_counter()
+    say(f"[12] {', '.join(a for a, *_ in FULL_MODELS)} at full width "
+        f"through Engine.generate, {FULL_BATCH} requests x {FULL_NEW} new "
+        f"tokens each")
+    K.gather_chunks.launches = K.scatter_chunks.launches = 0
+    PK.paged_attention.launches = 0
+    models = full_models(say)
+    flash_by_phase = {"9": serving["flash_attention"],
+                      "12": {a: r["flash_launches"] for a, r in models.items()}}
+    launches["flash_attention"] += sum(flash_by_phase["12"].values())
+    say(f"  flash_attention launches by phase: {flash_by_phase}, in all "
+        f"{launches['flash_attention']}; chunked copy "
+        f"{K.gather_chunks.launches} + {K.scatter_chunks.launches}, paged "
+        f"{PK.paged_attention.launches}; {time.perf_counter() - t0:.2f} s")
 
     replaces = {"gather_chunks": "src/repro/kernels/chunked_copy/kernel.py:37",
                 "scatter_chunks": "src/repro/kernels/chunked_copy/kernel.py:59",
@@ -1548,12 +1892,15 @@ def main() -> int:
         if name == "paged_attention":
             keys += ("l2_evicted_ms", "contiguous_sdpa_ms", "split_plan",
                      "sdpa_row_rel_err")
-        qwen = attn[f"{name}/qwen2-72b"]
         extra = {k: r[k] for k in keys[6:]}
         if name == "paged_attention":
             extra["max_row_rel_err_bf16"] = attn_err[
                 (name, "bfloat16 row-relative")]
-        extra["qwen2-72b"] = {k: qwen[k] for k in keys}
+        else:
+            extra["launches_by_phase"] = flash_by_phase
+        for key, sub in attn.items():
+            if key.startswith(f"{name}/"):
+                extra[key.split("/", 1)[1]] = {k: sub[k] for k in keys}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
@@ -1564,10 +1911,11 @@ def main() -> int:
             "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], **extra})
-    say(json.dumps({"serving": full}))
+    say(json.dumps({"serving": full, "full_models": models}))
     say(json.dumps({"chaos": {k: chaos[k] for k in (
         "faults", "fired", "retries", "failures", "recovered_stages",
         "replans", "checked", "held")}, "swap": swap}))
+    say(f"chip_smoke.py wall time {time.perf_counter() - started:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

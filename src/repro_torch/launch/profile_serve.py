@@ -1,12 +1,14 @@
 """Where the serving path's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--steps 8] [--trace chiprun_out/serve_trace.json]
+        [--arch minicpm-2b] [--layers N] [--steps 8] [--trace PATH]
 
-Builds ``Engine(minicpm-2b)`` at full width in bf16 on ``cuda`` (random
-weights from a seed) at the shape ``chip_smoke.py`` serves (8 requests
-of 1024 prompt tokens), warms it with one prefill and one decode step,
-then runs one prefill and ``--steps`` decode steps under
+Builds ``Engine(--arch)`` at full width in bf16 on ``cuda`` (random
+weights from a seed; ``--layers`` cuts the depth) at the shape
+``chip_smoke.py`` serves (8 requests of 1024 prompt positions, inputs
+from ``io.synthetic_batch``: an encoder-decoder's are split evenly
+between frames and tokens), warms it with one prefill and one
+decode step, then runs one prefill and ``--steps`` decode steps under
 ``torch.profiler``.  For
 each phase it prints the host wall time (after a device synchronise),
 the device's busy time (the union of kernel, memcpy and memset
@@ -17,15 +19,15 @@ when there is no card or when the trace holds no device event.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from collections import defaultdict
 
-import numpy as np
 import torch
 
 DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
-ARCH, BATCH, PROMPT, TOP = "minicpm-2b", 8, 1024, 12
+BATCH, PROMPT, TOP = 8, 1024, 12
 
 
 def _busy_us(events) -> float:
@@ -57,25 +59,30 @@ def _report(name: str, wall_s: float, events, top: int) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="minicpm-2b")
+    ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--trace", default="chiprun_out/serve_trace.json")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import io
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine, extend_caches
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_arch(ARCH)
-    B, L, n = BATCH, PROMPT, args.steps
+    cfg = get_arch(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    B, n = BATCH, args.steps
+    batch = io.synthetic_batch(cfg, ShapeSpec("t", PROMPT, B, "prefill"), 0)
+    L = batch["tokens"].shape[1]
     eng = Engine(cfg, ShapeSpec("serve", L + n + 1, B, "decode"),
                  M.init_params(cfg, 0, "cuda"))
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, L), dtype=np.int32))
 
     def prefill():
-        logits, caches = eng.prefill({"tokens": toks})
+        logits, caches = eng.prefill(batch)
         return torch.argmax(logits, -1)[:, None].to(torch.int32), \
             extend_caches(cfg, caches, L + n + 1)
 
@@ -112,7 +119,8 @@ def main(argv=None) -> dict:
                for e in trace if e.get("cat") == "user_annotation"
                and e["name"].startswith("phase:")}
     out = {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
-           "batch": B, "prompt_len": L, "steps": n}
+           "layers": cfg.n_layers, "batch": B, "prompt_len": L,
+           "steps": n}
     for name, (a, b) in regions.items():
         evs = [e for e in dev if a <= e["ts"] < b]
         label = name if name == "prefill" else f"decode ({n} steps)"

@@ -1,12 +1,11 @@
-"""Attention, PyTorch port of ``src/repro/models/attention.py``: RoPE,
-blockwise attention for prefill, single-query decode attention over the
-KV cache, and the cache update.
+"""Attention, PyTorch port of ``src/repro/models/attention.py``: RoPE and
+M-RoPE, blockwise attention for prefill, single-query decode attention
+over the KV cache, and the cache update.
 
 ``blockwise_attention`` keeps its JAX signature and goes through
 ``kernels/flash_attention/ops.attention``: on the card the hand-written
 kernel, on the CPU its plain version.  ``decode_attention`` stays plain
 torch, as the JAX package computes it outside any Pallas kernel.
-M-RoPE waits for the Qwen2-VL slice (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -48,6 +47,49 @@ def apply_rope(x, positions, theta: float):
     else:                       # (B, L, half)
         ang = ang[:, None]
     return apply_rotary(x, ang)
+
+
+def mrope_position_ids(seq_len: int, vision_prefix: int, grid_w: int = 32,
+                       device="cpu"):
+    """Qwen2-VL M-RoPE position ids (3, L): temporal/height/width.
+
+    The vision prefix lives on a (1, P//grid_w, grid_w) grid; at text
+    positions all three streams advance together, continuing after the
+    prefix grid's largest id.
+    """
+    return mrope_ids_at(torch.arange(seq_len, device=device), vision_prefix,
+                        grid_w)
+
+
+def mrope_ids_at(idx, vision_prefix: int, grid_w: int = 32):
+    """``mrope_position_ids`` at the positions ``idx`` (L,) only: (3, L)."""
+    in_vis = idx < vision_prefix
+    text = idx - vision_prefix + grid_w
+    t = torch.where(in_vis, torch.zeros_like(idx), text)
+    h = torch.where(in_vis, idx // grid_w, text)
+    w = torch.where(in_vis, idx % grid_w, text)
+    return torch.stack([t, h, w])          # (3, L)
+
+
+def apply_mrope(x, pos3, theta: float, sections=(1, 1, 1)):
+    """M-RoPE: frequency bands split across the (t, h, w) position streams.
+
+    pos3: (3, L).  ``sections`` is the relative band split over
+    head_dim//2.  The model calls it with the default (1, 1, 1), as the
+    JAX package does (Qwen2-VL's own split is 16/24/24 at head_dim 128).
+    """
+    half = x.shape[-1] // 2
+    total = sum(sections)
+    band = torch.zeros((half,), dtype=torch.long, device=x.device)
+    freq_idx = torch.arange(half, device=x.device)
+    acc = 0
+    for s in sections[:-1]:
+        acc += s * half // total
+        band = band + (freq_idx >= acc).long()
+    ang = rope_angles(pos3, x.shape[-1], theta)            # (3, L, half)
+    ang = torch.gather(ang.permute(1, 2, 0), -1,
+                       band[None, :, None].expand(ang.shape[1], half, 1))
+    return apply_rotary(x, ang[..., 0][None, None])         # (L, half)
 
 
 # -------------------------------------------- blockwise (flash) attention --

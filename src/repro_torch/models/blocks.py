@@ -1,16 +1,16 @@
 """Block assembly, PyTorch port of ``src/repro/models/blocks.py``: kind
 keys, per-kind param/cache specs, apply dispatch.
 
-A *kind* is "<mixer>/<ffn>", e.g. "attn/dense", "attn_local/dense".
-``block_pattern(cfg)`` names every layer's kind; patterns are periodic,
-so the layer stack is stored as (n_units, run_len, ...) stacked params,
-exactly as the JAX package stores it.  The port runs every attention
-kind with a dense FFN: full, sliding-window (``attn_local``, with the
-circular cache slots) and ``attn_global`` (its own RoPE theta), with or
-without QKV bias.  Mamba, xLSTM, MoE, the encoder-decoder and M-RoPE
-raise ``NotImplementedError`` naming their ROADMAP.md item; their
-parameter specs are here so that every architecture's parameter tree
-and count match the JAX package's.
+A *kind* is "<mixer>/<ffn>", e.g. "attn/dense", "mamba/moe",
+"mlstm/none".  ``block_pattern(cfg)`` names every layer's kind; patterns
+are periodic, so the layer stack is stored as (n_units, run_len, ...)
+stacked params, exactly as the JAX package stores it.  Every kind of the
+ten architectures runs: the attention mixers (full, sliding-window with
+circular cache slots, ``attn_global`` with its own RoPE theta, RoPE or
+M-RoPE, with or without QKV bias, the encoder's non-causal ``enc_attn``
+and ``dec_attn`` with cross-attention over the encoder output, which no
+architecture's pattern names, as in the JAX package), Mamba, mLSTM and
+sLSTM, each with a dense, MoE or no FFN.
 """
 from __future__ import annotations
 
@@ -22,22 +22,10 @@ import torch
 from repro_torch.configs.base import ArchConfig, _pattern_period
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.param import PSpec
-
-_PENDING = {
-    "mamba": "ROADMAP.md §1, model stack item 1 (models/mamba.py)",
-    "mlstm": "ROADMAP.md §1, model stack item 1 (models/xlstm.py)",
-    "slstm": "ROADMAP.md §1, model stack item 1 (models/xlstm.py)",
-    "moe": "ROADMAP.md §1, model stack item 1 (models/moe.py)",
-    "enc_attn": "ROADMAP.md §1, model stack item 1 (encoder-decoder)",
-    "dec_attn": "ROADMAP.md §1, model stack item 1 (encoder-decoder)",
-    "mrope": "ROADMAP.md §1, model stack item 1 (M-RoPE)",
-}
-
-
-def pending(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet: {_PENDING[what]}")
 
 
 @dataclass
@@ -146,82 +134,6 @@ def attn_specs(cfg: ArchConfig, cross: bool = False):
     return s
 
 
-# The parameter specs of the mixers and FFNs whose forward waits, copied
-# from src/repro/models/{mamba,xlstm,moe}.py so that every architecture's
-# tree (and count) is the JAX package's.
-
-def _mamba_specs(cfg: ArchConfig):
-    D, N = cfg.d_model, cfg.d_state
-    din = cfg.d_inner
-    dtr = max(D // 16, 1)
-    return {
-        "in_x": PSpec((D, din), ("embed", "state_inner")),
-        "in_z": PSpec((D, din), ("embed", "state_inner")),
-        "conv_w": PSpec((cfg.d_conv, din), ("conv", "state_inner"), scale=1.0),
-        "conv_b": PSpec((din,), ("state_inner",), init="zeros"),
-        "w_dt": PSpec((din, dtr), ("state_inner", None)),
-        "dt_proj": PSpec((dtr, din), (None, "state_inner")),
-        "dt_bias": PSpec((din,), ("state_inner",), torch.float32, "zeros"),
-        "w_B": PSpec((din, N), ("state_inner", None)),
-        "w_C": PSpec((din, N), ("state_inner", None)),
-        "A_log": PSpec((din, N), ("state_inner", None), torch.float32,
-                       "s4d_log"),
-        "D_skip": PSpec((din,), ("state_inner",), torch.float32, "ones"),
-        "out": PSpec((din, D), ("state_inner", "embed")),
-    }
-
-
-def _mlstm_specs(cfg: ArchConfig):
-    D = cfg.d_model
-    din = cfg.d_inner
-    H = cfg.n_heads
-    dh = din // H
-    return {
-        "up_x": PSpec((D, din), ("embed", "mlp")),
-        "up_z": PSpec((D, H, dh), ("embed", None, "head_v"), fan_in=D),
-        "wq": PSpec((din, H, dh), ("mlp", None, None), fan_in=din),
-        "wk": PSpec((din, H, dh), ("mlp", None, None), fan_in=din),
-        "wv": PSpec((din, H, dh), (None, None, "head_v"), fan_in=din),
-        "w_i": PSpec((din, H), ("mlp", None)),
-        "w_f": PSpec((din, H), ("mlp", None)),
-        "b_i": PSpec((H,), (None,), torch.float32, "zeros"),
-        "b_f": PSpec((H,), (None,), torch.float32, "ones"),
-        "out": PSpec((H, dh, D), (None, "head_v", "embed"), fan_in=H * dh),
-    }
-
-
-def _slstm_specs(cfg: ArchConfig):
-    D = cfg.d_model
-    H = cfg.n_heads
-    dh = D // H
-    dff = cfg.expand * D
-    return {
-        "w_gates": PSpec((D, 4, H, dh), ("embed", None, None, None),
-                         fan_in=D),
-        "r_gates": PSpec((4, H, dh, dh), (None, None, None, None), scale=0.5),
-        "b_gates": PSpec((4, H, dh), (None, None, None), torch.float32,
-                         "zeros"),
-        "ffn_up": PSpec((D, dff), ("embed", "mlp")),
-        "ffn_gate": PSpec((D, dff), ("embed", "mlp")),
-        "ffn_down": PSpec((dff, D), ("mlp", "embed")),
-    }
-
-
-def _moe_specs(cfg: ArchConfig):
-    E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
-    names = (("wi_gate", "wi_up", "wo") if cfg.mlp_type == "gated_silu"
-             else ("wi", "wo"))
-    specs = {"router": PSpec((D, E), ("embed", "experts"))}
-    for n in names:
-        if n == "wo":
-            specs[n] = PSpec((E, F, D), ("experts", "expert_mlp", "embed"),
-                             fan_in=F)
-        else:
-            specs[n] = PSpec((E, D, F), ("experts", "embed", "expert_mlp"),
-                             fan_in=D)
-    return specs
-
-
 def _norm_specs(cfg: ArchConfig):
     return L.layernorm_spec(cfg.d_model) if cfg.family == "encdec" \
         else L.rmsnorm_spec(cfg.d_model)
@@ -263,13 +175,13 @@ def block_specs(cfg: ArchConfig, kind: str):
             s["xattn"] = attn_specs(cfg, cross=True)
     elif mixer == "mamba":
         s["ln1"] = _norm_specs(cfg)
-        s["mamba"] = _mamba_specs(cfg)
+        s["mamba"] = mamba_mod.mamba_specs(cfg)
     elif mixer == "mlstm":
         s["ln1"] = _norm_specs(cfg)
-        s["mlstm"] = _mlstm_specs(cfg)
+        s["mlstm"] = xlstm_mod.mlstm_specs(cfg)
     elif mixer == "slstm":
         s["ln1"] = _norm_specs(cfg)
-        s["slstm"] = _slstm_specs(cfg)
+        s["slstm"] = xlstm_mod.slstm_specs(cfg)
     else:
         raise ValueError(mixer)
     if meta["ffn"] == "dense":
@@ -277,36 +189,49 @@ def block_specs(cfg: ArchConfig, kind: str):
         s["mlp"] = L.mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_type)
     elif meta["ffn"] == "moe":
         s["ln2"] = _norm_specs(cfg)
-        s["moe"] = _moe_specs(cfg)
+        s["moe"] = moe_mod.moe_specs(cfg)
     return _scale_residual_outputs(cfg, s)
-
-
-def _check_ported(cfg: ArchConfig, kind: str) -> dict:
-    meta = kind_meta(cfg, kind)
-    if meta["mixer"] in _PENDING:
-        raise pending(meta["mixer"])
-    if meta["ffn"] == "moe":
-        raise pending("moe")
-    if cfg.rope == "mrope":
-        raise pending("mrope")
-    return meta
 
 
 def block_cache_shapes(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
                        enc_len: int = 0):
     """(shape, dtype, logical) per cache leaf for decoding."""
-    del enc_len                 # cross-attention caches wait with encdec
-    mixer = _check_ported(cfg, kind)["mixer"]
+    meta = kind_meta(cfg, kind)
+    mixer = meta["mixer"]
     hd = cfg.resolved_head_dim
     Kv = cfg.n_kv_heads
     kv_logical = ("batch", None, "kv_seq", None)
     cd = cfg.cache_jdtype
+    if mixer in ("attn", "attn_global", "dec_attn"):
+        c = {
+            "k": ((batch, Kv, cache_len, hd), cd, kv_logical),
+            "v": ((batch, Kv, cache_len, hd), cd, kv_logical),
+        }
+        if meta["cross"]:
+            c["ck"] = ((batch, Kv, enc_len, hd), cd, kv_logical)
+            c["cv"] = ((batch, Kv, enc_len, hd), cd, kv_logical)
+        return c
     if mixer == "attn_local":
-        cache_len = min(cfg.window_size, cache_len)
-    return {
-        "k": ((batch, Kv, cache_len, hd), cd, kv_logical),
-        "v": ((batch, Kv, cache_len, hd), cd, kv_logical),
-    }
+        w = min(cfg.window_size, cache_len)
+        return {
+            "k": ((batch, Kv, w, hd), cd, kv_logical),
+            "v": ((batch, Kv, w, hd), cd, kv_logical),
+        }
+    if mixer == "mamba":
+        shapes = mamba_mod.mamba_state_shapes(cfg, batch)
+        logical = {"conv": ("batch", None, "state_inner"),
+                   "ssm": ("batch", "state_inner", None)}
+        return {k: (v[0], v[1], logical[k]) for k, v in shapes.items()}
+    if mixer == "mlstm":
+        shapes = xlstm_mod.mlstm_state_shapes(cfg, batch)
+        logical = {"C": ("batch", None, None, "head_v"),
+                   "n": ("batch", None, None), "m": ("batch", None)}
+        return {k: (v[0], v[1], logical[k]) for k, v in shapes.items()}
+    if mixer == "slstm":
+        shapes = xlstm_mod.slstm_state_shapes(cfg, batch)
+        return {k: (v[0], v[1], ("batch", None, None))
+                for k, v in shapes.items()}
+    raise ValueError(mixer)
 
 
 # -------------------------------------------------------------- apply ------
@@ -327,11 +252,20 @@ def _rope(cfg, meta, q, k, positions):
         q = attn_mod.apply_rope(q, positions, meta["theta"])
         k = attn_mod.apply_rope(k, positions, meta["theta"])
     elif cfg.rope == "mrope":
-        raise pending("mrope")
+        pos3 = _mrope_at(cfg, positions) if positions.dim() == 1 \
+            else positions
+        q = attn_mod.apply_mrope(q, pos3, meta["theta"])
+        k = attn_mod.apply_mrope(k, pos3, meta["theta"])
     return q, k
 
 
-def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos):
+def _mrope_at(cfg, idx):
+    """(3, L) M-RoPE ids of positions ``idx`` (L,): the vision prefix on
+    a 32-wide grid, text positions after it on all three streams."""
+    return attn_mod.mrope_ids_at(idx, cfg.vision_prefix)
+
+
+def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos, enc_out):
     B, Lq, D = x.shape
     h = _norm(cfg, x, p["ln1"])
     ap = p["attn"]
@@ -376,20 +310,65 @@ def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos):
         new_cache = dict(cache, k=ck, v=cv)
 
     y = torch.einsum("bhlk,hkd->bld", out, ap["wo"])
-    return x + y, new_cache
+    x = x + y
+
+    if meta["cross"]:
+        h = _norm(cfg, x, p["ln_x"])
+        xp = p["xattn"]
+        q = torch.einsum("bld,dhk->bhlk", h, xp["cwq"])
+        if mode == "decode":
+            # every encoder position is visible
+            S_enc = cache["ck"].shape[2]
+            out = attn_mod.decode_attention(q, cache["ck"], cache["cv"],
+                                            S_enc - 1)
+        else:
+            ck = torch.einsum("bld,dhk->bhlk", enc_out, xp["cwk"])
+            cv = torch.einsum("bld,dhk->bhlk", enc_out, xp["cwv"])
+            if mode == "prefill":
+                new_cache = dict(new_cache,
+                                 ck=ck.to(cfg.cache_jdtype).contiguous(),
+                                 cv=cv.to(cfg.cache_jdtype).contiguous())
+            out = attn_mod.blockwise_attention(q, ck, cv, causal=False)
+        y = torch.einsum("bhlk,hkd->bld", out, xp["cwo"])
+        x = x + y
+    return x, new_cache
+
+
+_RECURRENT = {"mamba": mamba_mod.mamba_forward,
+              "mlstm": xlstm_mod.mlstm_forward,
+              "slstm": xlstm_mod.slstm_forward}
 
 
 def apply_block(cfg, ctx: ModelCtx, kind: str, p, x, *, mode: str,
-                cache=None, pos=0):
-    """Returns (x, new_cache, aux); aux (the MoE balance loss) is 0.0 on
-    every ported kind."""
-    meta = _check_ported(cfg, kind)
-    x, new_cache = _attn_apply(cfg, ctx, meta, p, x, mode=mode, cache=cache,
-                               pos=pos)
+                cache=None, pos=0, enc_out=None):
+    """Returns (x, new_cache, aux): aux is the MoE balance loss, a 0-d
+    f32 tensor (0.0 where the FFN is not MoE).  A recurrent mixer's
+    decode returns its new state, its large leaves written in place;
+    attention writes its caches in place."""
+    meta = kind_meta(cfg, kind)
+    mixer = meta["mixer"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = cache if cache is not None else {}
+
+    if mixer in _RECURRENT:
+        h = _norm(cfg, x, p["ln1"])
+        state = cache if mode == "decode" else None
+        y, st = _RECURRENT[mixer](h, p[mixer], cfg, state=state)
+        x = x + y
+        new_cache = st if mode in ("prefill", "decode") else {}
+    else:
+        x, new_cache = _attn_apply(cfg, ctx, meta, p, x, mode=mode,
+                                   cache=cache, pos=pos, enc_out=enc_out)
+
     if meta["ffn"] == "dense":
         h = _norm(cfg, x, p["ln2"])
         x = x + L.mlp(h, p["mlp"], cfg.mlp_type)
+    elif meta["ffn"] == "moe":
+        h = _norm(cfg, x, p["ln2"])
+        y, aux_moe = moe_mod.moe_block(h, p["moe"], cfg)
+        x = x + y
+        aux = aux + aux_moe
     x = ctx.cons(x, ("batch", "seq", "act_embed"))
     if mode == "train":
         new_cache = {}
-    return x, new_cache, 0.0
+    return x, new_cache, aux

@@ -94,3 +94,22 @@ def logits_out(x, p):
     if "lm_head" in p:
         return torch.einsum("bsd,dv->bsv", x.float(), p["lm_head"].float())
     return torch.einsum("bsd,vd->bsv", x.float(), p["table"].float())
+
+
+def sinusoidal_positions(length: int, d_model: int, offset: int = 0,
+                         device="cpu"):
+    """Whisper-style fixed sinusoidal absolute embedding (computed, no
+    params): (length, d_model) f32, sines then cosines."""
+    half = d_model // 2
+    step = math.log(10_000.0) / max(half - 1, 1)
+    inv = torch.exp(-torch.arange(half, dtype=torch.float32, device=device)
+                    * step)
+    pos = torch.arange(offset, offset + length, dtype=torch.float32,
+                       device=device)[:, None]
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoid_at(pos: int, d_model: int, device="cpu"):
+    """The sinusoidal embedding of one position: (d_model,) f32."""
+    return sinusoidal_positions(1, d_model, pos, device)[0]

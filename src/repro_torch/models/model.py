@@ -1,7 +1,12 @@
 """Model facade, PyTorch port of ``src/repro/models/model.py``: param
 specs, the stacked-block loop, prefill and decode entry points.
 
-The parameter and cache trees keep the JAX package's layout: stacked
+One code path for all ten architectures: decoder-only stacks, the
+encoder-decoder (the encoder over precomputed ``frames``; its output
+goes to every decoder block, and ``dec_attn`` blocks attend to it) and
+the vision-language prefix (``vision_embeds`` spliced over the first
+positions).  The parameter
+and cache trees keep the JAX package's layout: stacked
 ``(n_units, run_len, ...)`` leaves under ``{"units": [...], "rest":
 [...]}``, so weights carry over with a plain tree map
 (``param.from_numpy``).  ``apply_stack`` is a Python loop over those
@@ -26,7 +31,6 @@ from repro_torch.models.blocks import (
     block_specs,
     enc_pattern,
     layout_for,
-    pending,
     stack_layout,
 )
 from repro_torch.models.param import PSpec, stack
@@ -80,18 +84,23 @@ def _cache_pspecs_for_kind(cfg, kind, batch, cache_len, enc_len):
 
 
 def cache_pspecs(cfg: ArchConfig, shape: ShapeSpec):
-    """PSpec tree for the decode-time cache (matches blocks structure)."""
-    if cfg.enc_layers:
-        raise pending("enc_attn")
+    """PSpec tree for the decode-time cache (matches blocks structure).
+    An encoder-decoder splits the shape's length evenly between the
+    decoder's cache and the encoder's output, as the JAX package does."""
     B = shape.global_batch
+    if cfg.enc_layers:
+        cache_len = enc_len = shape.seq_len // 2
+    else:
+        cache_len, enc_len = shape.seq_len, 0
     layout = layout_for(cfg, block_pattern(cfg))
     units = [
-        stack(stack(_cache_pspecs_for_kind(cfg, k, B, shape.seq_len, 0),
+        stack(stack(_cache_pspecs_for_kind(cfg, k, B, cache_len, enc_len),
                     rl, "stack"), layout.n_units, "layers")
         for k, rl in layout.runs
     ]
     rest = [
-        stack(_cache_pspecs_for_kind(cfg, k, B, shape.seq_len, 0), rl, "stack")
+        stack(_cache_pspecs_for_kind(cfg, k, B, cache_len, enc_len), rl,
+              "stack")
         for k, rl in layout.rest_runs
     ]
     return {"units": units, "rest": rest}
@@ -123,35 +132,52 @@ def _at(tree, where):
 
 
 def _stacked(layout: StackLayout, per_layer: dict):
-    """Per-layer cache dicts, stacked back into the tree layout."""
-    def run(wheres, lead):
+    """Per-layer cache dicts, stacked back into the tree layout.  A run
+    with no layer (``n_units == 0``: fewer layers than one period) gets
+    leaves of length 0 in front, shaped like another layer's of its
+    kind, as the JAX scan's empty output is."""
+    like = {}
+    for (group, r, *_), c in per_layer.items():
+        runs = layout.runs if group == "units" else layout.rest_runs
+        like.setdefault(runs[r][0], c)
+
+    def run(kind, wheres, lead):
+        if not wheres:
+            return {k: t.new_empty((*lead, *t.shape))
+                    for k, t in like[kind].items()}
         layers = [per_layer[w] for w in wheres]
         return {k: torch.stack([d[k] for d in layers])
                 .reshape(*lead, *layers[0][k].shape) for k in layers[0]}
     n = layout.n_units
     return {
-        "units": [run([("units", r, u, i) for u in range(n)
-                       for i in range(rl)], (n, rl))
-                  for r, (_, rl) in enumerate(layout.runs)],
-        "rest": [run([("rest", r, i) for i in range(rl)], (rl,))
-                 for r, (_, rl) in enumerate(layout.rest_runs)],
+        "units": [run(kind, [("units", r, u, i) for u in range(n)
+                             for i in range(rl)], (n, rl))
+                  for r, (kind, rl) in enumerate(layout.runs)],
+        "rest": [run(kind, [("rest", r, i) for i in range(rl)], (rl,))
+                 for r, (kind, rl) in enumerate(layout.rest_runs)],
     }
 
 
 def apply_stack(cfg, ctx, layout: StackLayout, bp, x, *, mode: str,
-                caches=None, pos=0):
+                caches=None, pos=0, enc_out=None):
     """Run the block stack.  Returns (x, new_caches, aux).  Prefill
     returns fresh stacked caches; decode updates ``caches`` in place
-    (``attention.kv_update``) and returns them."""
-    aux = 0.0
+    (attention through ``attention.kv_update``, the mLSTM's C and n and
+    the Mamba ssm state by the mixer itself, the other, small recurrent
+    state leaves copied into their slot) and returns them."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = {}
     for kind, where in _layers(layout):
         cache_in = _at(caches, where) if mode == "decode" else None
         x, nc, da = apply_block(cfg, ctx, kind, _at(bp, where), x, mode=mode,
-                                cache=cache_in, pos=pos)
+                                cache=cache_in, pos=pos, enc_out=enc_out)
         aux = aux + da
         if mode == "prefill":
             per_layer[where] = nc
+        elif mode == "decode":
+            for key, t in nc.items():
+                if t is not cache_in[key]:
+                    cache_in[key].copy_(t)
     if mode == "prefill":
         return x, _stacked(layout, per_layer), aux
     if mode == "decode":
@@ -161,24 +187,41 @@ def apply_stack(cfg, ctx, layout: StackLayout, bp, x, *, mode: str,
 
 # ------------------------------------------------------------ embedding ----
 
-def _embed_decoder_input(cfg, ctx, params, tokens):
-    if cfg.family == "encdec":
-        raise pending("enc_attn")
-    if cfg.vision_prefix:
-        raise pending("mrope")
+def _embed_decoder_input(cfg, ctx, params, tokens, *, pos_offset=0,
+                         vision_embeds=None):
     x = L.embed_lookup(tokens, params["embed"], scale_by_dim=cfg.tie_embeddings)
+    if cfg.family == "encdec":
+        x = x + L.sinusoidal_positions(
+            tokens.shape[1], cfg.d_model, pos_offset, x.device).to(x.dtype)
+    if cfg.vision_prefix and vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, cfg.vision_prefix:]],
+                      dim=1)
     return ctx.cons(x, ("batch", "seq", "act_embed"))
+
+
+def _run_encoder(cfg, ctx, params, frames):
+    x = frames + L.sinusoidal_positions(
+        frames.shape[1], cfg.d_model, device=frames.device).to(frames.dtype)
+    layout = stack_layout_enc(cfg)
+    x, _, _ = apply_stack(cfg, ctx, layout, params["enc_blocks"], x,
+                          mode="train")
+    return _norm(cfg, x, params["enc_ln_f"])
 
 
 # ------------------------------------------------------------- entries -----
 
 def prefill(cfg: ArchConfig, ctx: ModelCtx, params, batch):
-    """Returns (last-position logits (B, V) f32, caches)."""
-    tokens = batch["tokens"]
-    x = _embed_decoder_input(cfg, ctx, params, tokens)
+    """Returns (last-position logits (B, V) f32, caches).  ``batch`` holds
+    ``tokens``, and ``frames`` (encoder-decoder) or ``vision_embeds``
+    (the vision prefix) where the architecture takes them."""
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = _run_encoder(cfg, ctx, params, batch["frames"])
+    x = _embed_decoder_input(cfg, ctx, params, batch["tokens"],
+                             vision_embeds=batch.get("vision_embeds"))
     layout = layout_for(cfg, block_pattern(cfg))
     x, caches, _ = apply_stack(cfg, ctx, layout, params["blocks"], x,
-                               mode="prefill")
+                               mode="prefill", enc_out=enc_out)
     x = _norm(cfg, x[:, -1:], params["ln_f"])
     logits = L.logits_out(x, params["embed"])[:, 0]
     return logits, caches
@@ -187,7 +230,11 @@ def prefill(cfg: ArchConfig, ctx: ModelCtx, params, batch):
 def decode_step(cfg: ArchConfig, ctx: ModelCtx, params, caches, token, pos):
     """One decode step.  token: (B, 1) int; pos: int position.  The
     caches are updated in place and returned."""
-    x = _embed_decoder_input(cfg, ctx, params, token)
+    x = L.embed_lookup(token, params["embed"], scale_by_dim=cfg.tie_embeddings)
+    if cfg.family == "encdec":
+        x = x + L.sinusoid_at(pos, cfg.d_model,
+                              x.device).to(x.dtype)[None, None]
+    x = ctx.cons(x, ("batch", "seq", "act_embed"))
     layout = layout_for(cfg, block_pattern(cfg))
     x, new_caches, _ = apply_stack(cfg, ctx, layout, params["blocks"], x,
                                    mode="decode", caches=caches, pos=pos)

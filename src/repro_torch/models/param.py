@@ -61,6 +61,13 @@ def stack(tree, n: int, logical: str = "stack"):
     )
 
 
+def abstract(tree):
+    """Shape-and-dtype stand-ins for a spec tree: tensors on the ``meta``
+    device, which hold no storage (the JAX package's ShapeDtypeStructs)."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta"), tree)
+
+
 def _leaf_seed(seed: int, name: str) -> int:
     # zlib.crc32 (not hash()): Python string hashing is randomized per
     # process, which would give every run different params.

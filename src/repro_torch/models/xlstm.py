@@ -1,0 +1,230 @@
+"""xLSTM blocks, PyTorch port of ``src/repro/models/xlstm.py``: mLSTM
+(matrix memory, chunkwise-parallel) and sLSTM (scalar memory, a true
+recurrence).
+
+mLSTM recurrence (per head, stabilised):
+    C_t = f_t C_{t-1} + i_t k_t v_t^T        f_t = sigmoid(f~), i_t = exp(i~)
+    n_t = f_t n_{t-1} + i_t k_t
+    h_t = (q_t^T C_t) / max(|q_t . n_t|, 1)
+
+It runs in the reference's chunkwise form (intra-chunk quadratic plus
+an inter-chunk carried state (C~, n~, m)) with the reference's chunk
+sizes, 256 for mLSTM and 64 for sLSTM, so that the port reassociates
+the sums as the reference does.  The ``lax.scan`` over chunks (and for
+sLSTM over steps) becomes a Python loop; nothing is checkpointed.
+Decode is the Q = 1 case of the same chunk function.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.param import PSpec
+
+NEG = -1e30
+
+
+# ------------------------------------------------------------- mLSTM -------
+
+def mlstm_specs(cfg: ArchConfig):
+    D = cfg.d_model
+    din = cfg.d_inner
+    H = cfg.n_heads
+    dh = din // H
+    return {
+        "up_x": PSpec((D, din), ("embed", "mlp")),
+        "up_z": PSpec((D, H, dh), ("embed", None, "head_v"), fan_in=D),
+        "wq": PSpec((din, H, dh), ("mlp", None, None), fan_in=din),
+        "wk": PSpec((din, H, dh), ("mlp", None, None), fan_in=din),
+        "wv": PSpec((din, H, dh), (None, None, "head_v"), fan_in=din),
+        "w_i": PSpec((din, H), ("mlp", None)),
+        "w_f": PSpec((din, H), ("mlp", None)),
+        "b_i": PSpec((H,), (None,), torch.float32, "zeros"),
+        "b_f": PSpec((H,), (None,), torch.float32, "ones"),
+        "out": PSpec((H, dh, D), (None, "head_v", "embed"), fan_in=H * dh),
+    }
+
+
+def mlstm_state_shapes(cfg: ArchConfig, batch: int):
+    H = cfg.n_heads
+    dh = cfg.d_inner // H
+    return {
+        "C": ((batch, H, dh, dh), torch.float32),
+        "n": ((batch, H, dh), torch.float32),
+        "m": ((batch, H), torch.float32),
+    }
+
+
+def _mlstm_chunk(q, k, v, a, b, state):
+    """One chunk of the stabilised chunkwise mLSTM.
+
+    q, k, v: (B, H, Q, dh); a = logsigmoid(f~), b = i~ preacts: (B, H, Q)
+    f32.  state: dict(C~ (B, H, dh, dh), n~ (B, H, dh), m (B, H)), f32;
+    its C~ and n~ are updated in place and returned with the new m.
+    """
+    Q, dh = q.shape[2], q.shape[3]
+    scale = 1.0 / math.sqrt(dh)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    la = torch.cumsum(a, dim=-1)                        # (B,H,Q) inclusive
+    # log-weight of source j at target i: la_i - la_j + b_j  (j <= i)
+    g = la[..., :, None] - la[..., None, :] + b[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=q.device))
+    g = g.masked_fill(~mask, NEG)
+    # carry contribution log-weight at target i: la_i + m_prev
+    g_carry = la + state["m"][..., None]                # (B,H,Q)
+    m_i = torch.maximum(g.amax(dim=-1), g_carry)        # (B,H,Q)
+
+    w_intra = torch.exp(g - m_i[..., None])             # (B,H,Q,Q)
+    w_carry = torch.exp(g_carry - m_i)                  # (B,H,Q)
+
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    sw = s * w_intra
+    q_s = qf * scale
+    num = sw @ vf + w_carry[..., None] * (q_s @ state["C"])
+    qn = sw.sum(dim=-1) + w_carry * (q_s @ state["n"][..., None])[..., 0]
+    h = num / torch.maximum(qn.abs(), torch.exp(-m_i))[..., None]
+
+    # ---- state update to the end of the chunk ----
+    LA = la[..., -1]                                    # (B,H) total log-decay
+    g_end = LA[..., None] - la + b                      # (B,H,Q) weight of j at end
+    m_next = torch.maximum(LA + state["m"], g_end.amax(dim=-1))
+    w_end = torch.exp(g_end - m_next[..., None])
+    decay = torch.exp(LA + state["m"] - m_next)
+    # C~ and n~ are updated in place (at decode they are the cache's
+    # slot), with the reference's two roundings: decay * C, then + the sum.
+    # sum_j w_end[j] k_j v_j^T as one product: no (B, H, Q, dh, dh) term
+    C, n = state["C"], state["n"]
+    C.mul_(decay[..., None, None]).add_(
+        (w_end[..., None] * kf).transpose(-1, -2) @ vf)
+    n.mul_(decay[..., None]).add_((w_end[..., None, :] @ kf)[..., 0, :])
+    return h, {"C": C, "n": n, "m": m_next}
+
+
+def mlstm_forward(x, p, cfg: ArchConfig, *, chunk: int = 256, state=None):
+    """x: (B, L, D) -> (y, state).  A given ``state`` has its C and n
+    updated in place: at decode they are the cache's own tensors, 5.6 GB
+    for xLSTM-1.3B at batch 8, so no step copies them."""
+    B, L, D = x.shape
+    H = cfg.n_heads
+    dh = cfg.d_inner // H
+
+    if state is None:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        state = {"C": torch.zeros((B, H, dh, dh), **f32),
+                 "n": torch.zeros((B, H, dh), **f32),
+                 "m": torch.zeros((B, H), **f32)}
+
+    def proj(x_c):
+        xi = x_c @ p["up_x"]                                 # (B,Q,din)
+        z = torch.einsum("bqd,dhe->bqhe", x_c, p["up_z"])
+        q = torch.einsum("bqi,ihd->bhqd", xi, p["wq"])
+        k = torch.einsum("bqi,ihd->bhqd", xi, p["wk"])
+        v = torch.einsum("bqi,ihd->bhqd", xi, p["wv"])      # (B,H,Q,dh_v)
+        a = F.logsigmoid(
+            (torch.einsum("bqi,ih->bhq", xi, p["w_f"])
+             + p["b_f"][None, :, None]).float())
+        b = (torch.einsum("bqi,ih->bhq", xi, p["w_i"])
+             + p["b_i"][None, :, None]).float()
+        return q, k, v, a, b, z
+
+    def readout(h, z):
+        """h: (B,H,Q,dh_v), z: (B,Q,H,dh_v) -> (B,Q,D)."""
+        y = h.to(z.dtype).permute(0, 2, 1, 3) * F.silu(z)
+        return torch.einsum("bqhe,hed->bqd", y, p["out"])
+
+    Q = min(chunk, L)
+    if L % Q:
+        raise ValueError(f"sequence length {L} is not a multiple of the "
+                         f"chunk {Q}")
+    outs = []
+    for x_c in x.split(Q, dim=1):
+        q, k, v, a, b, z = proj(x_c)
+        h, state = _mlstm_chunk(q, k, v, a, b, state)
+        outs.append(readout(h, z))
+    return torch.cat(outs, dim=1), state
+
+
+# ------------------------------------------------------------- sLSTM -------
+
+def slstm_specs(cfg: ArchConfig):
+    D = cfg.d_model
+    H = cfg.n_heads
+    dh = D // H
+    dff = cfg.expand * D
+    return {
+        "w_gates": PSpec((D, 4, H, dh), ("embed", None, None, None),
+                         fan_in=D),
+        "r_gates": PSpec((4, H, dh, dh), (None, None, None, None), scale=0.5),
+        "b_gates": PSpec((4, H, dh), (None, None, None), torch.float32,
+                         "zeros"),
+        "ffn_up": PSpec((D, dff), ("embed", "mlp")),
+        "ffn_gate": PSpec((D, dff), ("embed", "mlp")),
+        "ffn_down": PSpec((dff, D), ("mlp", "embed")),
+    }
+
+
+def slstm_state_shapes(cfg: ArchConfig, batch: int):
+    H = cfg.n_heads
+    dh = cfg.d_model // H
+    return {k: ((batch, H, dh), torch.float32) for k in ("c", "n", "h", "m")}
+
+
+def _recurrent_weights(p):
+    """``r_gates`` (4, H, dh, dh) as f32 (H, dh, 4*dh): one head's four
+    gate matrices side by side, so that a step is one batched product
+    over heads that reads each weight once."""
+    r = p["r_gates"].float()
+    return r.permute(1, 2, 0, 3).reshape(r.shape[1], r.shape[2], -1)
+
+
+def _slstm_step(p, st, gx_t, rt=None):
+    """gx_t: (B, 4, H, dh) input-side gate preacts for one step.  ``rt``
+    is ``_recurrent_weights(p)``, when the caller has made it once."""
+    c, n, h, m = st["c"], st["n"], st["h"], st["m"]
+    if rt is None:
+        rt = _recurrent_weights(p)
+    B, H, dh = h.shape
+    # gr[b, g, h, e] = sum_d h[b, h, d] r_gates[g, h, d, e]
+    gr = torch.bmm(h.transpose(0, 1), rt).view(H, B, 4, dh) \
+        .permute(1, 2, 0, 3)                                  # (B,4,H,dh)
+    g = gx_t.float() + gr + p["b_gates"]
+    zt = torch.tanh(g[:, 0])
+    it, ft, ot = g[:, 1], g[:, 2], torch.sigmoid(g[:, 3])
+    m_new = torch.maximum(ft + m, it)
+    ip = torch.exp(it - m_new)
+    fp = torch.exp(ft + m - m_new)
+    c = fp * c + ip * zt
+    n = fp * n + ip
+    h = ot * c / n.clamp_min(1e-6)
+    return {"c": c, "n": n, "h": h, "m": m_new}
+
+
+def slstm_forward(x, p, cfg: ArchConfig, *, chunk: int = 64, state=None):
+    """x: (B, L, D) -> (y, state).  Strictly sequential recurrence; the
+    reference's chunks of 64 only bound its backward memory, so the port
+    steps through the sequence in one loop.  ``chunk`` is kept for the
+    reference's signature and only checks that L is a multiple of it."""
+    B, L, D = x.shape
+    H = cfg.n_heads
+    dh = D // H
+
+    if state is None:
+        z = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
+        state = {"c": z, "n": z, "h": z, "m": z}
+    if L > 1 and L % min(chunk, L):
+        raise ValueError(f"sequence length {L} is not a multiple of the "
+                         f"chunk {chunk}")
+
+    gx = torch.einsum("bld,dghe->blghe", x, p["w_gates"])      # (B,L,4,H,dh)
+    rt = _recurrent_weights(p)
+    hs = []
+    for t in range(L):
+        state = _slstm_step(p, state, gx[:, t], rt)
+        hs.append(state["h"])
+    y = torch.stack(hs, dim=1).reshape(B, L, H * dh).to(x.dtype)
+    # post-up-projection FFN (sLSTM block style)
+    h2 = F.silu(y @ p["ffn_gate"]) * (y @ p["ffn_up"])
+    return h2 @ p["ffn_down"], state

@@ -27,7 +27,8 @@ def _pad_seq(leaf, to_len: int):
 def extend_caches(cfg: ArchConfig, caches, to_len: int):
     """Pad full-attention k/v caches along kv_seq to ``to_len``.
 
-    Window (circular) caches are fixed-size and kept as they are.
+    Window (circular) caches and recurrent states are fixed-size; cross
+    (ck/cv) caches keep the encoder length.
     """
     layout = layout_for(cfg, block_pattern(cfg))
 
@@ -69,10 +70,12 @@ class Engine:
         self.ctx = M.build_ctx(cfg, shape)
 
     def prefill(self, batch):
-        """(last-position logits (B, V) f32, caches)."""
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        return M.prefill(self.cfg, self.ctx, self.params,
-                         dict(batch, tokens=tokens))
+        """(last-position logits (B, V) f32, caches).  ``batch`` holds
+        ``tokens`` and, where the architecture takes them, ``frames`` or
+        ``vision_embeds``; each goes to the engine's device."""
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in batch.items()}
+        return M.prefill(self.cfg, self.ctx, self.params, batch)
 
     def decode(self, caches, tok, pos: int):
         """One decode step; the caches are updated in place."""

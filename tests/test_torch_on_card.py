@@ -266,6 +266,18 @@ def test_flash_attention_launches_one_kernel_per_call(cuda_device, tmp_path):
     (2, 4, 4, 1024, 1024, 64, True, 0, 0, 0),     # MiniCPM-2B's, narrow
     (1, 2, 2, 130, 1088, 64, True, 300, 950, 0),  # window over many tiles
     (1, 4, 1, 90, 1500, 128, False, 0, 0, 0),     # 24 tiles at D=128
+    # Whisper-medium's encoder (not causal, 1500 frames), 4 queries over
+    # those frames (not causal, Lq != Lkv), GQA group 6 at D=128
+    # (Qwen2-VL-2B's 12/2 heads; DBRX's 48/8), causal and not
+    (2, 16, 16, 1500, 1500, 64, False, 0, 0, 0),
+    (2, 16, 16, 4, 1500, 64, False, 0, 0, 0),
+    (2, 12, 2, 2048, 2048, 128, True, 0, 0, 0),
+    (1, 48, 8, 300, 300, 128, True, 0, 0, 0),
+    (1, 12, 2, 77, 1500, 128, False, 0, 0, 0),
+    # DBRX-132B's (48/8) and Jamba-1.5-Large's (64/8) heads at a
+    # 1024-token prefill, one request
+    (1, 48, 8, 1024, 1024, 128, True, 0, 0, 0),
+    (1, 64, 8, 1024, 1024, 128, True, 0, 0, 0),
 ])
 def test_flash_attention_matches_plain_on_card(cuda_device, shape, dtype,
                                                tol):
