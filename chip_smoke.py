@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 It imports the port (``src/repro_torch``) only, builds the hand-written
-CUDA kernels from the checkout's sources, and runs twelve phases:
+CUDA kernels from the checkout's sources, and runs thirteen phases:
 
 1. environment: torch / CUDA versions, the card's name and power limit,
    and ``synth_payload`` against numpy's own uint8 draw;
@@ -27,8 +27,9 @@ CUDA kernels from the checkout's sources, and runs twelve phases:
    MiniCPM-2B's shapes and at odd ones (flash: not causal over Whisper's
    1500 frames, 4 queries over them, group 6 at Qwen2-VL-2B's heads;
    paged: many spans, a length on a span boundary, group 8 at D=128,
-   pages of 8; flash also at every shape phase 12 launches, derived
-   from its models' configs), and their times beside their bound, their plain
+   pages of 8; flash also at every shape phase 12 launches and at phase
+   13's training shape, derived from the models' configs), and their
+   times beside their bound, their plain
    versions' and the library call's (flash and paged also at Qwen2-72B's
    heads, GQA at D=128, flash also at Whisper-medium's encoder and
    Qwen2-VL-2B's prefill; paged also beside SDPA over the same K/V as a
@@ -70,10 +71,26 @@ CUDA kernels from the checkout's sources, and runs twelve phases:
     decode times, tokens/s, peak memory, one flash launch per attention
     layer, for Qwen2-VL-2B and Whisper-medium 4 decode steps against
     prefills of the same tokens (teacher-forced), and Whisper's encoder
-    output through the kernel against the plain attention.
+    output through the kernel against the plain attention;
+13. the training path: (a) one ``build_train_step`` step with 2
+    microbatches of phase 8's eight architectures reduced, in f32, card
+    against CPU (loss and every leaf's gradient, flash launches: forward
+    and checkpoint recompute); (b) MiniCPM-2B at full width in bf16,
+    ``loss_fn`` and its whole-tree gradient through the kernel's autograd
+    Function against the plain attention, one microbatch of 2 x 4096
+    tokens; (c) MiniCPM-2B trained at full width through
+    ``train_loop.run_training`` (bf16 parameters, f32 AdamW moments, the
+    WSD schedule; 3 steps of 4 x 4096 tokens in 2 microbatches): ms a
+    step, tokens/s, peak memory, model-FLOPs share, then one step
+    profiled (device idle share, top kernels, the flash forward against
+    the plain attention backward); (d) a full-width checkpoint save and
+    restore of parameters and optimizer state (27 GB) under a temporary
+    directory, every leaf equal, and the reference's fault-recovery
+    scenario on the card at reduced size.
 
 The data plane (phases 4-6), the serving path (phase 9), the chaos run
-(10), the swap tier (11) and each model of phase 12 are the main paths:
+(10), the swap tier (11), each model of phase 12 and the training run
+(13c) are the main paths:
 the launch counters are set to 0 just before each and read just after
 it; the reads that check landed bytes are kept out of the counts.
 Float32 matrix products stay in full f32 (TF32 off).  Any failed check
@@ -561,9 +578,28 @@ def model_flash_cases() -> list:
     return list(cases)
 
 
+def train_flash_cases() -> list:
+    """The flash shapes of phase 13's full-width training, derived from
+    its config as ``loss_fn`` runs them: one microbatch (TRAIN_BATCH /
+    TRAIN_ACCUM rows) of TRAIN_SEQ tokens through each distinct kind of
+    attention layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.blocks import block_pattern, kind_meta
+    cfg = get_arch(TRAIN_ARCH)
+    cases = {}
+    for kind in block_pattern(cfg):
+        meta = kind_meta(cfg, kind)
+        if meta["mixer"] not in RECURRENT_MIXERS:
+            cases[(TRAIN_BATCH // TRAIN_ACCUM, cfg.n_heads, cfg.n_kv_heads,
+                   TRAIN_SEQ, TRAIN_SEQ, cfg.resolved_head_dim,
+                   meta["causal"], meta["window"], 0, 0)] = 1
+    return list(cases)
+
+
 def attention_cases() -> dict:
     """Both attention kernels against their plain versions at every case
-    (FLASH_CASES and ``model_flash_cases()`` for flash), f32 and bf16.  Returns the largest absolute difference per kernel and
+    (FLASH_CASES, ``model_flash_cases()`` and ``train_flash_cases()`` for
+    flash), f32 and bf16.  Returns the largest absolute difference per kernel and
     dtype, and the paged kernel's largest row-relative one in bf16 under
     ("paged_attention", "bfloat16 row-relative")."""
     import torch
@@ -575,7 +611,7 @@ def attention_cases() -> dict:
     worst = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).removeprefix("torch.")
-        for case in FLASH_CASES + model_flash_cases():
+        for case in FLASH_CASES + model_flash_cases() + train_flash_cases():
             B, Hq, Hkv, Lq, Lkv, D, causal, window, q_off, kv_off = case
             kw = dict(causal=causal, window=window, q_offset=q_off,
                       kv_offset=kv_off)
@@ -728,14 +764,17 @@ def paged_times(B, Hq, Hkv, D, page, NP, gen) -> dict:
 def attention_times() -> dict:
     """Device times in bf16 (CUDA graph replay, CUDA events) at
     MiniCPM-2B's prefill and decode shapes, at Qwen2-72B's heads and
-    (flash) at FLASH_MODEL_SHAPES, beside the bound, the plain version
-    and the library call (SDPA for flash; paged attention has no single
-    PyTorch call)."""
+    (flash) at FLASH_MODEL_SHAPES and phase 13's training shape, beside
+    the bound, the plain version and the library call (SDPA for flash;
+    paged attention has no single PyTorch call)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(CASE_SEED + 1)
     B, H, L, D = 8, 36, 1024, 64
     B_q, Hq_q, Hkv_q, D_q, page_q, NP_q = QWEN_PAGED
+    (B_t, Hq_t, Hkv_t, L_t, _, D_t, c_t, _, _, _), = train_flash_cases()
     res = {"flash_attention": flash_times(B, H, H, L, D, gen),
+           f"flash_attention/{TRAIN_ARCH}-train": flash_times(
+               B_t, Hq_t, Hkv_t, L_t, D_t, gen, causal=c_t),
            "flash_attention/qwen2-72b": flash_times(*QWEN_SHAPE, gen),
            **{f"flash_attention/{name}": flash_times(
                B_m, Hq_m, Hkv_m, L_m, D_m, gen, causal=c)
@@ -1148,6 +1187,432 @@ def full_models(say) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------ phase 13 ---
+#: phase 13's full-width training: MiniCPM-2B as published at its
+#: training context (arXiv:2404.06395: 4096 tokens), a global batch of 4
+#: sequences in 2 interleaved microbatches, 3 steps
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 4, 2, 3
+#: phase 13b: the loss through the kernel against the plain attention,
+#: relative, and the whole-tree gradient's relnorm (the bf16 production
+#: bound of tests/test_consistency.py, as for decode in phase 12)
+TRAIN_LOSS_REL = 2e-3
+GRAD_RELNORM = TF_RELNORM
+#: phase 13a: reduced train steps, card against CPU, in f32: 4 sequences
+#: of 64 tokens (one Mamba chunk, under one mLSTM chunk) in 2 microbatches
+REDUCED_TRAIN_SHAPE = (64, 4)
+
+
+def _leaf_relnorms(got, want) -> dict:
+    """{path: ||got - want|| / ||want||} over two trees' leaves, in f32."""
+    from repro_torch.models import param as PM
+    return {p: _relnorm(g, w) for (p, g), w in zip(
+        PM.tree_leaves_with_paths(got), PM.tree_leaves(want))}
+
+
+@contextlib.contextmanager
+def captured_grads(into: list):
+    """Within it, every gradient tree a train step hands to
+    ``adamw_update`` is also appended to ``into`` (copied to the host)."""
+    from repro_torch.models import param as PM
+    from repro_torch.training import train_step as TS
+    update = TS.adamw_update
+
+    def wrapped(oc, params, grads, opt_state):
+        into.append(PM.tree_map(lambda g: g.detach().cpu(), grads))
+        return update(oc, params, grads, opt_state)
+    TS.adamw_update = wrapped
+    try:
+        yield
+    finally:
+        TS.adamw_update = update
+
+
+def reduced_training(say) -> float:
+    """Phase 13a: one ``build_train_step`` step with TRAIN_ACCUM
+    microbatches of each phase-8 architecture reduced, in f32, on the card
+    and on the CPU from the same weights (made on the CPU, then copied)
+    and batch: the loss within REDUCED_TOL (xLSTM REDUCED_TOL_XLSTM), each
+    leaf's accumulated gradient within the same bound in relnorm, and two
+    flash launches (forward, recompute) per decoder attention layer and
+    microbatch, one per encoder layer (no loss reads the encoder, so its
+    units are never recomputed)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import io
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import build_train_step
+    worst = 0.0
+    seq, batch_rows = REDUCED_TRAIN_SHAPE
+    for arch in REDUCED_ARCHS:
+        cfg = dataclasses.replace(get_arch(arch).reduced(), cache_dtype="f32")
+        host = PM.tree_map(lambda t: t.float(),
+                           M.init_params(cfg, CASE_SEED, "cpu"))
+        batch = io.synthetic_batch(cfg, ShapeSpec("t", seq, batch_rows,
+                                                  "train"), CASE_SEED, "cpu")
+        batch = {k: v.float() if v.is_floating_point() else v
+                 for k, v in batch.items()}
+        runs = {}
+        for device in ("cpu", "cuda"):
+            params = PM.trainable(PM.tree_map(
+                lambda t: t.to(device, copy=True), host))
+            opt = init_opt_state(M.model_specs(cfg), "f32", device)
+            step = build_train_step(cfg, M.build_ctx(cfg),
+                                    OptConfig(schedule=cfg.lr_schedule),
+                                    TRAIN_ACCUM)
+            grads = []
+            before = FK.flash_attention.launches
+            with captured_grads(grads):
+                _, opt, m = step(params, opt, {k: v.to(device)
+                                               for k, v in batch.items()})
+            torch.cuda.synchronize()
+            runs[device] = (m["loss"].item(), grads[0], int(opt["step"]),
+                            FK.flash_attention.launches - before)
+        tol = REDUCED_TOL_XLSTM if arch == "xlstm-1.3b" else REDUCED_TOL
+        loss_err = abs(runs["cuda"][0] - runs["cpu"][0])
+        rel = _leaf_relnorms(runs["cuda"][1], runs["cpu"][1])
+        leaf, grad_err = max(rel.items(), key=lambda kv: kv[1])
+        check(loss_err <= tol, f"{arch} reduced train step: loss differs "
+              f"by {loss_err} (limit {tol})")
+        check(grad_err <= tol, f"{arch} reduced train step: gradient of "
+              f"{leaf} differs by relnorm {grad_err} (limit {tol})")
+        check(runs["cuda"][2] == runs["cpu"][2] == 1,
+              f"{arch}: optimizer step {runs['cuda'][2]}, {runs['cpu'][2]}")
+        n_dec = attention_layers(cfg) - cfg.enc_layers
+        want = TRAIN_ACCUM * (2 * n_dec + cfg.enc_layers)
+        check(runs["cpu"][3] == 0 and runs["cuda"][3] == want,
+              f"{arch} reduced train step: flash launches {runs['cpu'][3]} "
+              f"on the CPU, {runs['cuda'][3]} on the card, not {want}")
+        worst = max(worst, loss_err, grad_err)
+        say(f"  {arch} reduced f32, {batch_rows} x {seq} tokens in "
+            f"{TRAIN_ACCUM} microbatches: loss {runs['cuda'][0]:.6f}, card "
+            f"against CPU {loss_err:.3g}; gradient relnorm worst "
+            f"{grad_err:.3g} ({leaf}; limit {tol:g}); {runs['cuda'][3]} "
+            f"flash launches on the card ({TRAIN_ACCUM} microbatches x "
+            f"(2 x {n_dec} decoder attention layers + {cfg.enc_layers} "
+            f"encoder))")
+    return worst
+
+
+def _tree_relnorm(got, want) -> float:
+    """||got - want|| / ||want|| over whole trees, in f32."""
+    import torch
+    from repro_torch.models import param as PM
+    got, want = PM.tree_leaves(got), PM.tree_leaves(want)
+    num = den = torch.zeros((), dtype=torch.float32, device=want[0].device)
+    for g, w in zip(got, want):
+        num = num + (g.float() - w.float()).square().sum()
+        den = den + w.float().square().sum()
+    return float(num.sqrt() / den.sqrt().clamp_min(1e-30))
+
+
+def full_width_gradient(say) -> dict:
+    """Phase 13b: MiniCPM-2B as published, bf16, random weights from
+    CASE_SEED, one microbatch (TRAIN_BATCH / TRAIN_ACCUM rows of
+    TRAIN_SEQ tokens): ``loss_fn`` and its whole-tree gradient through
+    the kernel (under ``FlashAttention``), then under ``plain_attention``
+    (autograd of ``attention_ref``, the full score matrix a layer); the
+    losses within TRAIN_LOSS_REL, the gradients within GRAD_RELNORM."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import io
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.training.train_step import value_and_grad
+    cfg = get_arch(TRAIN_ARCH)
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    params = PM.trainable(M.init_params(cfg, CASE_SEED))
+    batch = io.synthetic_batch(cfg, ShapeSpec("t", TRAIN_SEQ, mb, "train"),
+                               CASE_SEED)
+    ctx = M.build_ctx(cfg)
+    out = {}
+    for name in ("kernel", "plain"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = FK.flash_attention.launches
+        t0 = time.perf_counter()
+        with plain_attention() if name == "plain" else contextlib.nullcontext():
+            loss, _, grads = value_and_grad(cfg, ctx, params, batch)
+        torch.cuda.synchronize()
+        out[name] = {"loss": loss.item(), "grads": grads,
+                     "s": time.perf_counter() - t0,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": FK.flash_attention.launches - before}
+    k, p = out["kernel"], out["plain"]
+    n_attn = attention_layers(cfg)
+    check(k["launches"] == 2 * n_attn and p["launches"] == 0,
+          f"13b: flash launches {k['launches']} (kernel), {p['launches']} "
+          f"(plain), not 2 x {n_attn} and 0")
+    check(all(bool(torch.isfinite(g).all()) for g in PM.tree_leaves(
+        k["grads"])), "13b: non-finite gradient through the kernel")
+    loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    rel = _tree_relnorm(k["grads"], p["grads"])
+    leaf, worst = max(_leaf_relnorms(k["grads"], p["grads"]).items(),
+                      key=lambda kv: kv[1])
+    check(loss_rel <= TRAIN_LOSS_REL, f"13b: loss {k['loss']} through the "
+          f"kernel, {p['loss']} plain: {loss_rel} relative (limit "
+          f"{TRAIN_LOSS_REL})")
+    check(rel < GRAD_RELNORM, f"13b: gradient through the kernel against "
+          f"the plain attention, relnorm {rel} (limit {GRAD_RELNORM})")
+    res = {"loss_kernel": k["loss"], "loss_plain": p["loss"],
+           "loss_rel": loss_rel, "grad_relnorm": rel,
+           "worst_leaf": leaf, "worst_leaf_relnorm": worst,
+           "s_kernel": k["s"], "s_plain": p["s"],
+           "peak_gb_kernel": k["peak_gb"], "peak_gb_plain": p["peak_gb"],
+           "flash_launches": k["launches"]}
+    say(f"  {TRAIN_ARCH} full width bf16, {mb} x {TRAIN_SEQ} tokens: loss "
+        f"{k['loss']:.6f} through the kernel, {p['loss']:.6f} plain "
+        f"({loss_rel:.3g} relative, limit {TRAIN_LOSS_REL:g}); whole-tree "
+        f"gradient relnorm {rel:.4f} (limit {GRAD_RELNORM}), worst leaf "
+        f"{leaf} {worst:.4f}; loss and gradient {k['s']:.3f} s, peak "
+        f"{k['peak_gb']:.2f} GB (plain: {p['s']:.3f} s, "
+        f"{p['peak_gb']:.2f} GB); {k['launches']} flash launches")
+    return res
+
+
+def _correlated_ms(trace, device_events, annotation: str) -> float:
+    """Device time of the kernels launched from inside the CPU ranges
+    named ``annotation`` (matched by the launch's correlation id)."""
+    ranges = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in trace
+              if e.get("cat") == "user_annotation"
+              and e["name"] == annotation]
+    ids = {e["args"]["correlation"] for e in trace
+           if e.get("cat") in ("cuda_runtime", "cuda_driver")
+           and "correlation" in e.get("args", {})
+           and any(e["tid"] == tid and a <= e["ts"] < b
+                   for tid, a, b in ranges)}
+    return sum(e["dur"] for e in device_events
+               if e.get("args", {}).get("correlation") in ids) / 1e3
+
+
+def profile_train_step(state, oc, say) -> dict:
+    """One more train step of 13c's state under ``torch.profiler``, as
+    ``launch/profile_serve.py`` profiles a prefill: host wall time,
+    device busy time and idle share, the top kernels, and the device
+    time in the flash forward against the plain attention backward
+    (``attention_bwd_ref``, read by its launches' correlation ids)."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.profile_serve import DEVICE_CATS, _report
+    from repro_torch.models import model as M
+    from repro_torch.training.train_step import build_train_step
+    cfg = get_arch(TRAIN_ARCH)
+    step = build_train_step(cfg, M.build_ctx(cfg), oc, TRAIN_ACCUM)
+    batch = state.pipeline.next_batch()
+    bwd = ops.attention_bwd_ref
+
+    def traced_bwd(*args, **kw):
+        with torch.profiler.record_function("attention_bwd_ref"):
+            return bwd(*args, **kw)
+    ops.attention_bwd_ref = traced_bwd
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with torch.profiler.record_function("phase:train_step"):
+                step(state.params, state.opt_state, batch)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = [e for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X"]
+    finally:
+        ops.attention_bwd_ref = bwd
+        os.unlink(path)
+    dev = [e for e in trace if e.get("cat") in DEVICE_CATS]
+    check(len(dev) > 0, "13c: the profiled train step holds no device event")
+    rep = _report("  profiled train step", wall, dev, 10)
+    rep["flash_forward_ms"] = sum(e["dur"] for e in dev
+                                  if "flash_bf16" in e["name"]) / 1e3
+    rep["attention_bwd_ms"] = _correlated_ms(trace, dev, "attention_bwd_ref")
+    check(rep["flash_forward_ms"] > 0 and rep["attention_bwd_ms"] > 0,
+          f"13c: no flash forward or attention backward in the trace: {rep}")
+    say(f"  flash forward {rep['flash_forward_ms']:.3f} ms, plain attention "
+        f"backward {rep['attention_bwd_ms']:.3f} ms of {rep['busy_ms']:.3f} "
+        f"ms device busy ({rep['attention_bwd_ms'] / rep['busy_ms']:.3f}); "
+        f"idle share {rep['idle_share']:.3f}")
+    return rep
+
+
+def full_width_training(say):
+    """Phase 13c: MiniCPM-2B as published, bf16 parameters, f32 AdamW
+    moments and the WSD schedule as ``launch/train.py`` sets them, through
+    ``train_loop.run_training``: TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens in TRAIN_ACCUM microbatches.  Each step's wall time
+    runs from its batch to its logged loss (both after a device
+    synchronise).  Returns (the result, the final state, the optimizer
+    config)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import run_training
+    cfg = get_arch(TRAIN_ARCH)
+    n_params = PM.count_params(M.model_specs(cfg))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    oc = OptConfig(schedule=cfg.lr_schedule, total_steps=TRAIN_STEPS,
+                   warmup_steps=max(TRAIN_STEPS // 10, 1))
+    starts, ends = [], []
+
+    class TimedPipeline(Pipeline):
+        def next_batch(self):
+            torch.cuda.synchronize()
+            starts.append(time.perf_counter())
+            return super().next_batch()
+
+    def log_fn(msg):
+        ends.append(time.perf_counter())
+        say(f"    {msg}")
+
+    torch.cuda.reset_peak_memory_stats()
+    FK.flash_attention.launches = 0
+    state, losses, stats = run_training(
+        cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        steps=TRAIN_STEPS, oc=oc, accum=TRAIN_ACCUM, log_every=1,
+        log_fn=log_fn, pipeline_cls=TimedPipeline)
+    launches = FK.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_attn = attention_layers(cfg)
+    want = n_attn * 2 * TRAIN_ACCUM * TRAIN_STEPS
+    check(launches == want, f"13c: {launches} flash launches, not {n_attn} "
+          f"layers x 2 (forward, recompute) x {TRAIN_ACCUM} microbatches x "
+          f"{TRAIN_STEPS} steps = {want}")
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"13c: losses {losses}")
+    check(int(state.opt_state["step"]) == TRAIN_STEPS and stats.restarts == 0,
+          f"13c: optimizer step {int(state.opt_state['step'])}")
+    init = M.init_params(cfg, 0)
+    same = [p for (p, a), b in zip(PM.tree_leaves_with_paths(state.params),
+                                   PM.tree_leaves(init)) if torch.equal(a, b)]
+    del init
+    check(same == [], f"13c: parameters unchanged by training: {same}")
+    steps = []
+    for i, (a, b) in enumerate(zip(starts, ends)):
+        s = b - a
+        steps.append({"ms": s * 1e3, "tok_s": tokens / s,
+                      "mfu": 6 * n_params * tokens / s / BF16_FLOPS_PER_S})
+        say(f"  step {i}: {s * 1e3:.1f} ms, {tokens / s:.1f} tokens/s, "
+            f"model-FLOPs share {steps[-1]['mfu']:.4f} (6 x "
+            f"{n_params / 1e9:.3f} B x {tokens} tokens over the step, "
+            f"against 989 TFLOP/s bf16)")
+    say(f"  losses {losses}; peak {peak:.2f} GB; {launches} flash launches "
+        f"({n_attn} layers x 2 x {TRAIN_ACCUM} microbatches x {TRAIN_STEPS} "
+        f"steps); every parameter leaf changed; optimizer step "
+        f"{int(state.opt_state['step'])}")
+    res = {"params": n_params, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "accum": TRAIN_ACCUM, "losses": losses, "steps": steps,
+           "peak_gb": peak, "flash_launches": launches}
+    return res, state, oc
+
+
+def checkpoint_round_trip(state, say) -> dict:
+    """Phase 13d, first half: one synchronous ``checkpoint.save`` of 13c's
+    {"params", "opt"} under a fresh temporary directory, then
+    ``checkpoint.restore`` into the same tree on the card: every leaf
+    equal; the write and read times.  The directory is removed."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.models import param as PM
+    from repro_torch.training import checkpoint as CKPT
+    tree = {"params": state.params, "opt": state.opt_state}
+    nbytes = sum(t.numel() * t.element_size() for t in PM.tree_leaves(tree))
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(d).free
+        check(free > 1.1 * nbytes, f"13d: {free / 1e9:.1f} GB free under "
+              f"{d}, the checkpoint needs {nbytes / 1e9:.1f} GB")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CKPT.save(d, state.step, tree,
+                  extra={"pipeline": state.pipeline.state()})
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, manifest = CKPT.restore(d, state.step, tree)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        diff = [p for (p, a), b in zip(PM.tree_leaves_with_paths(got),
+                                       PM.tree_leaves(tree))
+                if a.dtype != b.dtype or a.device != b.device
+                or not torch.equal(a, b)]
+        check(diff == [], f"13d: leaves differ after the round trip: {diff}")
+        check(manifest["extra"]["pipeline"] == state.pipeline.state(),
+              f"13d: manifest extra {manifest['extra']}")
+        n_leaves = len(manifest["leaves"])
+        del got
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    say(f"  checkpoint of {n_leaves} leaves, {nbytes / 1e9:.2f} GB: write "
+        f"{write_s:.2f} s ({nbytes / write_s / 1e9:.2f} GB/s), restore to "
+        f"the card {read_s:.2f} s ({nbytes / read_s / 1e9:.2f} GB/s); every "
+        f"leaf equal; {free / 1e9:.0f} GB were free")
+    return {"gb": nbytes / 1e9, "leaves": n_leaves, "write_s": write_s,
+            "read_s": read_s}
+
+
+def recovery_on_card(say) -> dict:
+    """Phase 13d, second half: the reference's recovery scenario
+    (tests/test_system.py, test_fault_recovery_resumes_from_checkpoint)
+    on the card: MiniCPM-2B reduced, 6 steps of 2 x 32 tokens, a
+    checkpoint every 2 steps, host 2 failing before step 4."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.fault import FaultPolicy, NodeFailure
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training.train_loop import run_training
+    fired = []
+
+    def injector(i):
+        if i == 4 and not fired:
+            fired.append(i)
+            return NodeFailure(2)
+        return None
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+    try:
+        state, losses, stats = run_training(
+            get_arch(TRAIN_ARCH).reduced(), ShapeSpec("t", 32, 2, "train"),
+            steps=6, accum=1, ckpt_dir=d,
+            policy=FaultPolicy(checkpoint_every=2),
+            failure_injector=injector, log_every=0)
+        last = CKPT.latest_step(d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(state.step == 6 and stats.restarts == 1
+          and stats.failed_hosts == [2] and last == 6,
+          f"13d recovery: step {state.step}, restarts {stats.restarts}, "
+          f"failed hosts {stats.failed_hosts}, last checkpoint {last}")
+    check(state.params["ln_f"]["scale"].is_cuda and all(np.isfinite(losses)),
+          "13d recovery: state not on the card or losses not finite")
+    say(f"  recovery on the card: {TRAIN_ARCH} reduced, 6 steps, checkpoint "
+        f"every 2, host 2 lost before step 4: step {state.step}, restarts "
+        f"{stats.restarts}, failed hosts {stats.failed_hosts}, latest "
+        f"checkpoint step {last}")
+    return {"step": state.step, "restarts": stats.restarts,
+            "failed_hosts": stats.failed_hosts}
 
 
 # ------------------------------------------------------- phases 10-11 ---
@@ -1865,6 +2330,45 @@ def main() -> int:
         f"{K.gather_chunks.launches} + {K.scatter_chunks.launches}, paged "
         f"{PK.paged_attention.launches}; {time.perf_counter() - t0:.2f} s")
 
+    # ---- the training path, counted from 13c's start to its end ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    say(f"[13a] build_train_step, reduced f32, {TRAIN_ACCUM} microbatches, "
+        f"card against CPU")
+    train_reduced = reduced_training(say)
+    say(f"  {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    say(f"[13b] {TRAIN_ARCH} at full width: loss and gradient through the "
+        f"kernel against the plain attention")
+    gradient = full_width_gradient(say)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    say(f"[13c] {TRAIN_ARCH} at full width through run_training: "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"{TRAIN_ACCUM} microbatches, bf16, f32 AdamW moments, WSD")
+    training, train_state, train_oc = full_width_training(say)
+    flash_by_phase["13c"] = training["flash_launches"]
+    launches["flash_attention"] += training["flash_launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    training["profile"] = profile_train_step(train_state, train_oc, say)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    say("[13d] checkpoint round trip at full width, then recovery on the "
+        "card")
+    ckpt = checkpoint_round_trip(train_state, say)
+    del train_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    recovery = recovery_on_card(say)
+    say(f"  flash_attention launches by phase: {flash_by_phase}, in all "
+        f"{launches['flash_attention']}; {time.perf_counter() - t0:.2f} s")
+
     replaces = {"gather_chunks": "src/repro/kernels/chunked_copy/kernel.py:37",
                 "scatter_chunks": "src/repro/kernels/chunked_copy/kernel.py:59",
                 "flash_attention":
@@ -1912,6 +2416,9 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], **extra})
     say(json.dumps({"serving": full, "full_models": models}))
+    say(json.dumps({"training": {
+        "reduced_worst_err": train_reduced, "gradient": gradient,
+        "full_width": training, "checkpoint": ckpt, "recovery": recovery}}))
     say(json.dumps({"chaos": {k: chaos[k] for k in (
         "faults", "fired", "retries", "failures", "recovered_stages",
         "replans", "checked", "held")}, "swap": swap}))

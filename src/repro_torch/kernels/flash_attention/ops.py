@@ -1,10 +1,38 @@
 """Prefill attention, chosen by the tensor's device alone: a CPU tensor
-takes the plain version (``ref.py``); any other tensor goes to the CUDA
-kernel, which launches or raises.  There is no fallback."""
+takes the plain version (``ref.py``), which autograd differentiates; any
+other tensor goes to the CUDA kernel, which launches or raises.  Where
+a gradient is wanted, the kernel runs under ``FlashAttention``, whose
+backward is the plain blockwise gradient (``ref.attention_bwd_ref``):
+the JAX package has no backward kernel either (XLA differentiates its
+``jnp`` scan).  There is no fallback."""
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels.flash_attention.kernel import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref,
+    attention_ref,
+)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel's forward under autograd.  It saves q, k and v, not the
+    output or the softmax statistics: the backward recomputes attention
+    block by block from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_offset):
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset,
+                      kv_offset=kv_offset)
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_bwd_ref(q, k, v, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -17,4 +45,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
               kv_offset=kv_offset)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, **kw)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                    kv_offset)
     return flash_attention(q, k, v, **kw)

@@ -44,16 +44,18 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec):
     return PM.abstract(batch_pspecs(cfg, shape))
 
 
-def synthetic_batch(cfg: ArchConfig, shape: ShapeSpec, seed: int = 0,
+def synthetic_batch(cfg: ArchConfig, shape: ShapeSpec, seed: int | tuple = 0,
                     device="cuda"):
     """Real tensors matching ``batch_pspecs`` on ``device``: token ids
     uniform in [0, vocab), embeddings standard normal.  Each input draws
     from numpy's generator seeded with (seed, crc32(name)), so one input
-    does not depend on which others the shape has.  The draws are not
-    the JAX package's (it folds the name into a JAX key)."""
+    does not depend on which others the shape has; ``seed`` is an int or
+    a tuple of ints (the data pipeline passes (seed, step)).  The draws
+    are not the JAX package's (it folds the name into a JAX key)."""
+    words = list(seed) if isinstance(seed, tuple) else [seed]
     out = {}
     for name, p in batch_pspecs(cfg, shape).items():
-        rng = np.random.default_rng([seed, zlib.crc32(name.encode())])
+        rng = np.random.default_rng([*words, zlib.crc32(name.encode())])
         if p.dtype == torch.int32 and p.shape:
             a = rng.integers(0, cfg.vocab_size, p.shape, dtype=np.int32)
         elif p.dtype == torch.int32:

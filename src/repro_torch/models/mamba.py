@@ -5,8 +5,9 @@ The JAX package streams the sequence through fixed-size chunks: the
 projections and the causal depthwise conv run per chunk, the state
 recurrence per step inside it, all under ``lax.scan`` with the chunk
 body checkpointed.  The port runs the same chunks and steps as Python
-loops; nothing is trained, so nothing is checkpointed.  Decode is the
-L == 1 case carrying (conv tail, ssm state).  Dtypes follow the
+loops; in training the model checkpoints each pattern unit
+(``model.apply_stack``), not each chunk.  Decode is the L == 1 case
+carrying (conv tail, ssm state).  Dtypes follow the
 reference step by step: the projections in x's dtype, ``+ dt_bias``
 (f32) before the softplus, the recurrence in f32.
 """
@@ -52,7 +53,8 @@ def mamba_state_shapes(cfg: ArchConfig, batch: int):
 def _chunk_step(p, h, x_t):
     """One recurrence step.  x_t: (B, din) post-conv activations.  The
     state h (B, din, N) is updated in place (at decode it is the cache's
-    slot) and returned."""
+    slot) and returned; where autograd records the step, a new state is
+    returned instead, since the backward reads every step's state."""
     dt = F.softplus(
         (x_t @ p["w_dt"]) @ p["dt_proj"] + p["dt_bias"]).float()  # (B, din)
     Bm = (x_t @ p["w_B"]).float()                                  # (B, N)
@@ -61,7 +63,11 @@ def _chunk_step(p, h, x_t):
     dA = torch.exp(dt[..., None] * A[None])                        # (B, din, N)
     xf = x_t.float()
     dBx = dt[..., None] * Bm[:, None, :] * xf[..., None]
-    h.mul_(dA).add_(dBx)                                           # (B, din, N)
+    if torch.is_grad_enabled() and (h.requires_grad or dA.requires_grad
+                                    or dBx.requires_grad):
+        h = h * dA + dBx
+    else:
+        h.mul_(dA).add_(dBx)                                       # (B, din, N)
     y = torch.einsum("bdn,bn->bd", h, Cm)                          # (B, din)
     y = y + p["D_skip"] * xf
     return h, y.to(x_t.dtype)

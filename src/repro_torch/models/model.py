@@ -10,12 +10,15 @@ and cache trees keep the JAX package's layout: stacked
 ``(n_units, run_len, ...)`` leaves under ``{"units": [...], "rest":
 [...]}``, so weights carry over with a plain tree map
 (``param.from_numpy``).  ``apply_stack`` is a Python loop over those
-leaves where the JAX package scans.  ``loss_fn`` waits for the training
-slice (ROADMAP.md §1).
+leaves where the JAX package scans.  ``loss_fn`` is the training loss:
+in train mode each pattern unit is recomputed in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), and
+each stacked leaf is split into its layers once per forward.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models import layers as L
@@ -158,13 +161,63 @@ def _stacked(layout: StackLayout, per_layer: dict):
     }
 
 
+def _unbind_layers(tree, lead: int, n: int) -> list:
+    """A stacked tree as the list of its ``n`` layers' trees: every leaf
+    flattened over its ``lead`` layer axes and unbound once, so that its
+    backward is one stack, where a view per layer (``_at``) would write
+    a zero tensor as large as the whole leaf for each layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind_layers(v, lead, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_unbind_layers(v, lead, n) for v in tree]
+        return [type(tree)(p[i] for p in parts) for i in range(n)]
+    return list(tree.flatten(0, lead - 1).unbind(0))
+
+
+def _train_stack(cfg, ctx, layout: StackLayout, bp, x, enc_out):
+    """Train mode: the layers in ``_layers`` order.  Each pattern unit is
+    recomputed in the backward where autograd records (the reference's
+    ``jax.checkpoint(unit_body)``), which bounds the activations kept at
+    one (B, S, D) a unit; the ``rest`` runs outside the checkpoint, as
+    the reference scans them."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    units = [_unbind_layers(t, 2, layout.n_units * rl)
+             for t, (_, rl) in zip(bp["units"], layout.runs)]
+
+    def unit(x, aux, u):
+        for (kind, rl), layers in zip(layout.runs, units):
+            for i in range(rl):
+                x, _, da = apply_block(cfg, ctx, kind, layers[u * rl + i],
+                                       x, mode="train", enc_out=enc_out)
+                aux = aux + da
+        return x, aux
+
+    records = torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for _, t in PM.tree_leaves_with_paths(bp)))
+    for u in range(layout.n_units):
+        if records:
+            x, aux = checkpoint(unit, x, aux, u, use_reentrant=False)
+        else:
+            x, aux = unit(x, aux, u)
+    for t, (kind, rl) in zip(bp["rest"], layout.rest_runs):
+        for p in _unbind_layers(t, 1, rl):
+            x, _, da = apply_block(cfg, ctx, kind, p, x, mode="train",
+                                   enc_out=enc_out)
+            aux = aux + da
+    return x, None, aux
+
+
 def apply_stack(cfg, ctx, layout: StackLayout, bp, x, *, mode: str,
                 caches=None, pos=0, enc_out=None):
     """Run the block stack.  Returns (x, new_caches, aux).  Prefill
     returns fresh stacked caches; decode updates ``caches`` in place
     (attention through ``attention.kv_update``, the mLSTM's C and n and
     the Mamba ssm state by the mixer itself, the other, small recurrent
-    state leaves copied into their slot) and returns them."""
+    state leaves copied into their slot) and returns them; train returns
+    no caches (``_train_stack``)."""
+    if mode == "train":
+        return _train_stack(cfg, ctx, layout, bp, x, enc_out)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = {}
     for kind, where in _layers(layout):
@@ -180,9 +233,7 @@ def apply_stack(cfg, ctx, layout: StackLayout, bp, x, *, mode: str,
                     cache_in[key].copy_(t)
     if mode == "prefill":
         return x, _stacked(layout, per_layer), aux
-    if mode == "decode":
-        return x, caches, aux
-    return x, None, aux
+    return x, caches, aux
 
 
 # ------------------------------------------------------------ embedding ----
@@ -209,6 +260,31 @@ def _run_encoder(cfg, ctx, params, frames):
 
 
 # ------------------------------------------------------------- entries -----
+
+def loss_fn(cfg: ArchConfig, ctx: ModelCtx, params, batch):
+    """Mean next-token cross-entropy from f32 logits, by logsumexp, plus
+    0.01 x the MoE balance loss.  Returns (loss, {"xent", "aux"})."""
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = _run_encoder(cfg, ctx, params, batch["frames"])
+    tokens = batch["tokens"]
+    x = _embed_decoder_input(cfg, ctx, params, tokens,
+                             vision_embeds=batch.get("vision_embeds"))
+    layout = layout_for(cfg, block_pattern(cfg))
+    x, _, aux = apply_stack(cfg, ctx, layout, params["blocks"], x,
+                            mode="train", enc_out=enc_out)
+    x = _norm(cfg, x, params["ln_f"])
+    logits = L.logits_out(x, params["embed"])            # (B, S, V) f32
+    logits = ctx.cons(logits, ("batch", "seq", "vocab"))
+
+    tgt = tokens[:, 1:].long()
+    lg = logits[:, :-1]
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, tgt[..., None])[..., 0]
+    xent = (lse - ll).mean()
+    loss = xent + 0.01 * aux
+    return loss, {"xent": xent, "aux": aux}
+
 
 def prefill(cfg: ArchConfig, ctx: ModelCtx, params, batch):
     """Returns (last-position logits (B, V) f32, caches).  ``batch`` holds

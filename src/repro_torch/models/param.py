@@ -4,8 +4,9 @@ Models declare their parameters as trees (dicts and lists) of ``PSpec``
 (shape + logical axes + init), as ``src/repro/models/param.py`` does.
 From one spec tree the port derives real tensors (``initialize``) and
 the parameter count; ``from_numpy`` carries the JAX package's weights
-over into a tree of the same structure.  The logical axes are kept for the
-``distributed/`` port; on one card nothing reads them.
+(and optimizer state) over into a tree of the same structure, and
+``trainable`` marks a tree's leaves for autograd.  The logical axes are
+kept for the ``distributed/`` port; on one card nothing reads them.
 """
 from __future__ import annotations
 
@@ -50,6 +51,25 @@ def tree_leaves_with_paths(tree, prefix: str = ""):
             yield from tree_leaves_with_paths(v, f"{prefix}{i}/")
     else:
         yield prefix[:-1], tree
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in ``tree_leaves_with_paths`` order."""
+    return [leaf for _, leaf in tree_leaves_with_paths(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """``leaves``, in ``tree_leaves_with_paths`` order, in the structure
+    of the tree ``like``."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return next(it)
+    return walk(like)
 
 
 def stack(tree, n: int, logical: str = "stack"):
@@ -118,18 +138,25 @@ def count_params(tree) -> int:
 
 
 def _to_tensor(a) -> torch.Tensor:
-    a = np.asarray(a)
+    a = np.array(a, order="C")     # a C-ordered copy; a 0-d array stays 0-d
     if a.dtype.name == "bfloat16":
         # numpy has no bf16 of its own: JAX hands it over as
         # ml_dtypes.bfloat16, which torch cannot read, so pass the bits
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
-                                .copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a).copy())
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def from_numpy(tree, device="cuda"):
-    """The JAX package's parameter (or cache) tree, as numpy arrays, into
-    the port's tree of the same structure, shapes and dtypes on
-    ``device``."""
+    """The JAX package's parameter, cache or optimizer-state tree, as
+    numpy arrays, into the port's tree of the same structure, shapes and
+    dtypes on ``device``: bf16 through its bits, the int8 moments'
+    {"q", "scale"} leaves and the 0-d int32 ``step`` as they are."""
     device = torch.device(device)
     return tree_map(lambda a: _to_tensor(a).to(device), tree)
+
+
+def trainable(tree):
+    """Mark every floating-point leaf of a parameter tree as requiring a
+    gradient (in place); returns the tree."""
+    return tree_map(lambda t: t.requires_grad_() if t.is_floating_point()
+                    else t, tree)

@@ -11,7 +11,8 @@ It runs in the reference's chunkwise form (intra-chunk quadratic plus
 an inter-chunk carried state (C~, n~, m)) with the reference's chunk
 sizes, 256 for mLSTM and 64 for sLSTM, so that the port reassociates
 the sums as the reference does.  The ``lax.scan`` over chunks (and for
-sLSTM over steps) becomes a Python loop; nothing is checkpointed.
+sLSTM over steps) becomes a Python loop; in training the model
+checkpoints each pattern unit (``model.apply_stack``), not each chunk.
 Decode is the Q = 1 case of the same chunk function.
 """
 from __future__ import annotations
@@ -94,12 +95,20 @@ def _mlstm_chunk(q, k, v, a, b, state):
     w_end = torch.exp(g_end - m_next[..., None])
     decay = torch.exp(LA + state["m"] - m_next)
     # C~ and n~ are updated in place (at decode they are the cache's
-    # slot), with the reference's two roundings: decay * C, then + the sum.
+    # slot), with the reference's two roundings: decay * C, then + the sum;
+    # where autograd records the chunk, as new tensors, since the backward
+    # reads the old ones.
     # sum_j w_end[j] k_j v_j^T as one product: no (B, H, Q, dh, dh) term
     C, n = state["C"], state["n"]
-    C.mul_(decay[..., None, None]).add_(
-        (w_end[..., None] * kf).transpose(-1, -2) @ vf)
-    n.mul_(decay[..., None]).add_((w_end[..., None, :] @ kf)[..., 0, :])
+    dC = (w_end[..., None] * kf).transpose(-1, -2) @ vf
+    dn = (w_end[..., None, :] @ kf)[..., 0, :]
+    if torch.is_grad_enabled() and (C.requires_grad or n.requires_grad
+                                    or dC.requires_grad):
+        C = C * decay[..., None, None] + dC
+        n = n * decay[..., None] + dn
+    else:
+        C.mul_(decay[..., None, None]).add_(dC)
+        n.mul_(decay[..., None]).add_(dn)
     return h, {"C": C, "n": n, "m": m_next}
 
 

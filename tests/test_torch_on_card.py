@@ -462,3 +462,93 @@ def test_engine_on_card_matches_cpu(cuda_device, arch):
         runs.append((logits.cpu(), out.cpu()))
     torch.testing.assert_close(runs[1][0], runs[0][0], atol=1e-4, rtol=1e-4)
     assert torch.equal(runs[1][1], runs[0][1])
+
+
+def _assert_rows_close(got, want, dtype):
+    """f32 within 1e-4; bf16 each row within 2**-6 of its largest |want|."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        return
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    rel = (g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-30)
+    assert float(rel.max()) <= 2 ** -6, float(rel.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", [
+    # (B, Hq, Hkv, L, causal, window)
+    (2, 4, 4, 600, True, 0),            # causal, L off the 512-row block
+    (1, 4, 4, 700, True, 128),          # sliding window
+    (1, 12, 2, 512, True, 0),           # GQA group 6
+])
+def test_flash_backward_matches_autograd_on_card(cuda_device, case, D, dtype):
+    """The kernel under ``ops.FlashAttention`` (one launch a forward) and
+    its blockwise plain backward against autograd of ``attention_ref``
+    on the same card."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    B, Hq, Hkv, L, causal, window = case
+    kw = dict(causal=causal, window=window)
+    gen = torch.Generator(device=cuda_device).manual_seed(L * D + Hq)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+               for s in ((B, Hq, L, D), (B, Hkv, L, D), (B, Hkv, L, D)))
+    do = torch.randn((B, Hq, L, D), generator=gen,
+                     device=cuda_device).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = FK.flash_attention.launches
+    out = ops.attention(*leaves, **kw)
+    assert FK.flash_attention.launches == before + 1
+    assert out.grad_fn is not None and out.dtype == dtype
+    got = torch.autograd.grad(out, leaves, do)
+    assert FK.flash_attention.launches == before + 1
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*ref, **kw), ref, do)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        _assert_rows_close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "jamba-1.5-large-398b"])
+def test_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One accum-2 train step of the reduced arch in f32 from the same
+    weights on the card (the flash kernel under autograd) and on the
+    CPU: loss within 1e-4 and every parameter within 1e-5 after the
+    update; two flash launches (forward, recompute) per attention layer
+    and microbatch."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import io
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import build_train_step
+    cfg = dataclasses.replace(get_arch(arch).reduced(), cache_dtype="f32")
+    host = PM.tree_map(lambda t: t.float(), M.init_params(cfg, 7, "cpu"))
+    batch = io.synthetic_batch(cfg, ShapeSpec("t", 64, 2, "train"), 3, "cpu")
+    from repro_torch.models.blocks import block_pattern, kind_meta
+    n_attn = sum(kind_meta(cfg, k)["mixer"] not in ("mamba", "mlstm", "slstm")
+                 for k in block_pattern(cfg))
+    runs = []
+    for device in ("cpu", "cuda"):
+        params = PM.trainable(PM.tree_map(
+                lambda t: t.to(device, copy=True), host))
+        opt = init_opt_state(M.model_specs(cfg), "f32", device)
+        step = build_train_step(cfg, M.build_ctx(cfg),
+                                OptConfig(schedule=cfg.lr_schedule), 2)
+        before = FK.flash_attention.launches
+        params, opt, m = step(params, opt, {k: v.to(device)
+                                            for k, v in batch.items()})
+        launched = FK.flash_attention.launches - before
+        runs.append((m["loss"].item(), [t.detach().cpu() for t in
+                                         PM.tree_leaves(params)], launched))
+    assert runs[0][2] == 0 and runs[1][2] == 2 * 2 * n_attn
+    assert abs(runs[1][0] - runs[0][0]) < 1e-4
+    for a, b in zip(runs[1][1], runs[0][1]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)

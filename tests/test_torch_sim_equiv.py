@@ -45,7 +45,7 @@ COPIES = ["errors.py", "core/topology.py", "core/pinned_buffer.py",
           "configs/nemotron_4_15b.py", "configs/qwen2_72b.py",
           "configs/qwen2_vl_2b.py", "configs/whisper_medium.py",
           "configs/xlstm_1_3b.py", "serving/workflow.py",
-          "serving/executor.py"]
+          "serving/executor.py", "distributed/fault.py"]
 
 
 @pytest.fixture(scope="module")
