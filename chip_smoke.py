@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 It imports the port (``src/repro_torch``) only, builds the hand-written
-CUDA kernels from the checkout's sources, and runs thirteen phases:
+CUDA kernels from the checkout's sources, and runs fourteen phases:
 
 1. environment: torch / CUDA versions, the card's name and power limit,
    and ``synth_payload`` against numpy's own uint8 draw;
@@ -86,11 +86,25 @@ CUDA kernels from the checkout's sources, and runs thirteen phases:
     the plain attention backward); (d) a full-width checkpoint save and
     restore of parameters and optimizer state (27 GB) under a temporary
     directory, every leaf equal, and the reference's fault-recovery
-    scenario on the card at reduced size.
+    scenario on the card at reduced size;
+14. the mesh layer on the card at world size 1: (a) ``make_smoke_mesh``
+    starts an NCCL process group of one; (b) 13c's first two steps
+    again through ``run_training(cfg, shape, mesh)``: the rank's rows,
+    the f32 gradient all-reduce, ZeRO-1 moments and the parameter
+    all-gather, the first step held against 13c's record of it (loss
+    within 1e-6 relative, every parameter leaf within relnorm 1e-5), the
+    second timed warm, then one more step profiled in a process of its
+    own (the collectives' calls and device time, the NCCL ranges and
+    device events); (c) int8 compression:
+    ``quantize``/``dequantize`` of the embedding gradient's shape
+    bit-equal to the CPU's, ``compressed_psum_leaf`` through the NCCL
+    group, and ``cross_pod_grad_sync`` over a MiniCPM-2B gradient tree
+    on a (1, 1, 1) (pod, data, model) mesh timed beside its HBM bound;
+    (d) both resharding permutes on the 1x1 mesh, bytes equal.
 
 The data plane (phases 4-6), the serving path (phase 9), the chaos run
-(10), the swap tier (11), each model of phase 12 and the training run
-(13c) are the main paths:
+(10), the swap tier (11), each model of phase 12 and the training runs
+(13c, 14b) are the main paths:
 the launch counters are set to 0 just before each and read just after
 it; the reads that check landed bytes are kept out of the counts.
 Float32 matrix products stay in full f32 (TF32 off).  Any failed check
@@ -1220,9 +1234,9 @@ def captured_grads(into: list):
     from repro_torch.training import train_step as TS
     update = TS.adamw_update
 
-    def wrapped(oc, params, grads, opt_state):
+    def wrapped(oc, params, grads, opt_state, *shardings):
         into.append(PM.tree_map(lambda g: g.detach().cpu(), grads))
-        return update(oc, params, grads, opt_state)
+        return update(oc, params, grads, opt_state, *shardings)
     TS.adamw_update = wrapped
     try:
         yield
@@ -1394,29 +1408,55 @@ def _correlated_ms(trace, device_events, annotation: str) -> float:
                if e.get("args", {}).get("correlation") in ids) / 1e3
 
 
-def profile_train_step(state, oc, say) -> dict:
-    """One more train step of 13c's state under ``torch.profiler``, as
-    ``launch/profile_serve.py`` profiles a prefill: host wall time,
-    device busy time and idle share, the top kernels, and the device
-    time in the flash forward against the plain attention backward
-    (``attention_bwd_ref``, read by its launches' correlation ids)."""
+def _traced(module, name: str, label: str):
+    """Swap ``module.name`` for a wrapper that runs it inside
+    ``record_function(label)``; returns the function that undoes it."""
+    import torch
+    fn = getattr(module, name)
+
+    def traced(*args, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kw)
+    setattr(module, name, traced)
+    return lambda: setattr(module, name, fn)
+
+
+def profile_train_step(state, oc, say, mesh=None) -> dict:
+    """One more train step of 13c's state (14b's, on its mesh) under
+    ``torch.profiler``, as ``launch/profile_serve.py`` profiles a
+    prefill: host wall time, device busy time and idle share, the top
+    kernels, and the device time in the flash forward against the plain
+    attention backward (``attention_bwd_ref``, read by its launches'
+    correlation ids).  On a mesh also the collectives: each
+    ``all_reduce_axes`` and ``gather_full`` call of the step, the device
+    time launched inside them, the process group's own profiler ranges
+    (``nccl:*``) and the device events NCCL names (``ncclDevKernel_*``)."""
     import os
     import tempfile
     import torch
     from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import mesh as MESH
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch.profile_serve import DEVICE_CATS, _report
     from repro_torch.models import model as M
-    from repro_torch.training.train_step import build_train_step
+    from repro_torch.models import param as PM
+    from repro_torch.training import train_step as TS
+    from repro_torch.training.optimizer import zero1_shardings
     cfg = get_arch(TRAIN_ARCH)
-    step = build_train_step(cfg, M.build_ctx(cfg), oc, TRAIN_ACCUM)
+    if mesh is None:
+        step = TS.build_train_step(cfg, M.build_ctx(cfg), oc, TRAIN_ACCUM)
+    else:
+        shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        ctx = M.build_ctx(cfg, shape, mesh)
+        zshd = zero1_shardings(M.model_specs(cfg), oc.state_dtype,
+                               MESH.make_opt_rules(cfg, shape, mesh,
+                                                   ctx.rules), mesh)
+        step = TS.build_train_step(cfg, ctx, oc, TRAIN_ACCUM, zshd)
     batch = state.pipeline.next_batch()
-    bwd = ops.attention_bwd_ref
-
-    def traced_bwd(*args, **kw):
-        with torch.profiler.record_function("attention_bwd_ref"):
-            return bwd(*args, **kw)
-    ops.attention_bwd_ref = traced_bwd
+    undo = [_traced(ops, "attention_bwd_ref", "attention_bwd_ref"),
+            _traced(TS, "all_reduce_axes", "mesh:all_reduce"),
+            _traced(MESH, "gather_full", "mesh:all_gather")]
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
@@ -1434,7 +1474,8 @@ def profile_train_step(state, oc, say) -> dict:
             trace = [e for e in json.load(f)["traceEvents"]
                      if e.get("ph") == "X"]
     finally:
-        ops.attention_bwd_ref = bwd
+        for u in undo:
+            u()
         os.unlink(path)
     dev = [e for e in trace if e.get("cat") in DEVICE_CATS]
     check(len(dev) > 0, "13c: the profiled train step holds no device event")
@@ -1448,7 +1489,108 @@ def profile_train_step(state, oc, say) -> dict:
         f"backward {rep['attention_bwd_ms']:.3f} ms of {rep['busy_ms']:.3f} "
         f"ms device busy ({rep['attention_bwd_ms'] / rep['busy_ms']:.3f}); "
         f"idle share {rep['idle_share']:.3f}")
+    if mesh is None:
+        return rep
+    n_leaves = len(PM.tree_leaves(state.params))
+    n_sharded = sum(1 for sh in PM.tree_leaves(zshd)
+                    if MESH.spec_axes(sh.spec))
+    calls = {k: sum(1 for e in trace if e.get("cat") == "user_annotation"
+                    and e["name"] == f"mesh:{k}")
+             for k in ("all_reduce", "all_gather")}
+    rep["collectives"] = {
+        "calls": calls,
+        **{f"{k}_ms": _correlated_ms(trace, dev, f"mesh:{k}") for k in calls},
+        "nccl_ranges": sorted({e["name"] for e in trace
+                               if e["name"].startswith("nccl:")}),
+        "nccl_range_count": sum(1 for e in trace
+                                if e["name"].startswith("nccl:")),
+        "nccl_device_events": sorted({e["name"] for e in dev
+                                      if "nccl" in e["name"].lower()}),
+        "nccl_device_ms": sum(e["dur"] for e in dev
+                              if "nccl" in e["name"].lower()) / 1e3}
+    c = rep["collectives"]
+    # one all-reduce a gradient leaf and one for the loss; one gather a
+    # parameter leaf whose moments' spec names a mesh axis
+    check(calls == {"all_reduce": n_leaves + 1, "all_gather": n_sharded},
+          f"14b: collectives {calls}, not {n_leaves + 1} all-reduces and "
+          f"{n_sharded} all-gathers")
+    check(c["nccl_range_count"] > 0 or c["nccl_device_events"],
+          f"14b: no NCCL range or device event in the profiled step: {c}")
+    say(f"  collectives in the profiled step: {calls}; device time launched "
+        f"inside them: all-reduce {c['all_reduce_ms']:.3f} ms, all-gather "
+        f"{c['all_gather_ms']:.3f} ms; process-group ranges "
+        f"{c['nccl_ranges']} x {c['nccl_range_count']}; NCCL device events "
+        f"{c['nccl_device_events']} ({c['nccl_device_ms']:.3f} ms)")
     return rep
+
+
+def leaf_stats(params) -> dict:
+    """{path: (f64 sum, f64 norm)} of every leaf of a parameter tree."""
+    from repro_torch.models import param as PM
+    return {p: (float(t.detach().double().sum()),
+                float(t.detach().double().norm()))
+            for p, t in PM.tree_leaves_with_paths(params)}
+
+
+def timed_pipeline(starts: list, before=None):
+    """``Pipeline`` whose ``next_batch`` records its start after a device
+    synchronise; ``before(i)`` runs first, outside the step's time."""
+    import torch
+    from repro_torch.data.pipeline import Pipeline
+
+    class TimedPipeline(Pipeline):
+        def next_batch(self):
+            if before is not None:
+                before(len(starts))
+            torch.cuda.synchronize()
+            starts.append(time.perf_counter())
+            return super().next_batch()
+    return TimedPipeline
+
+
+def step_times(starts, ends, n_params, tokens, say) -> list:
+    steps = []
+    for i, (a, b) in enumerate(zip(starts, ends)):
+        s = b - a
+        steps.append({"ms": s * 1e3, "tok_s": tokens / s,
+                      "mfu": 6 * n_params * tokens / s / BF16_FLOPS_PER_S})
+        say(f"  step {i}: {s * 1e3:.1f} ms, {tokens / s:.1f} tokens/s, "
+            f"model-FLOPs share {steps[-1]['mfu']:.4f} (6 x "
+            f"{n_params / 1e9:.3f} B x {tokens} tokens over the step, "
+            f"against 989 TFLOP/s bf16)")
+    return steps
+
+
+@contextlib.contextmanager
+def first_step_record(first: dict):
+    """Within it, ``run_training``'s parameters after its first step are
+    recorded into ``first`` (each leaf's f64 sum and norm, and a host
+    copy) when the second step asks for its batch, out of that step's
+    time.  Yields the hook for ``timed_pipeline``."""
+    from repro_torch.models import param as PM
+    from repro_torch.training import train_loop
+    live = {}
+    build = train_loop.build_train_step
+
+    def recording_build(*args, **kw):
+        step = build(*args, **kw)
+
+        def recorded(params, opt_state, batch):
+            live.setdefault("params", params)
+            return step(params, opt_state, batch)
+        return recorded
+
+    def hook(i):
+        if i == 1:
+            first["stats"] = leaf_stats(live["params"])
+            first["host"] = [t.detach().to("cpu", copy=True) for t in
+                             PM.tree_leaves(live["params"])]
+
+    train_loop.build_train_step = recording_build
+    try:
+        yield hook
+    finally:
+        train_loop.build_train_step = build
 
 
 def full_width_training(say):
@@ -1457,12 +1599,13 @@ def full_width_training(say):
     ``train_loop.run_training``: TRAIN_STEPS steps of TRAIN_BATCH x
     TRAIN_SEQ tokens in TRAIN_ACCUM microbatches.  Each step's wall time
     runs from its batch to its logged loss (both after a device
-    synchronise).  Returns (the result, the final state, the optimizer
-    config)."""
+    synchronise).  After the first step (before the second's batch, out
+    of its time) the parameters are recorded for phase 14b: each leaf's
+    f64 sum and norm, and a host copy.  Returns (the result, the final
+    state, the optimizer config, the first step's record)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.data.pipeline import Pipeline
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.models import model as M
     from repro_torch.models import param as PM
@@ -1473,13 +1616,7 @@ def full_width_training(say):
     tokens = TRAIN_BATCH * TRAIN_SEQ
     oc = OptConfig(schedule=cfg.lr_schedule, total_steps=TRAIN_STEPS,
                    warmup_steps=max(TRAIN_STEPS // 10, 1))
-    starts, ends = [], []
-
-    class TimedPipeline(Pipeline):
-        def next_batch(self):
-            torch.cuda.synchronize()
-            starts.append(time.perf_counter())
-            return super().next_batch()
+    starts, ends, first = [], [], {}
 
     def log_fn(msg):
         ends.append(time.perf_counter())
@@ -1487,10 +1624,12 @@ def full_width_training(say):
 
     torch.cuda.reset_peak_memory_stats()
     FK.flash_attention.launches = 0
-    state, losses, stats = run_training(
-        cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
-        steps=TRAIN_STEPS, oc=oc, accum=TRAIN_ACCUM, log_every=1,
-        log_fn=log_fn, pipeline_cls=TimedPipeline)
+    with first_step_record(first) as hook:
+        state, losses, stats = run_training(
+            cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            steps=TRAIN_STEPS, oc=oc, accum=TRAIN_ACCUM, log_every=1,
+            log_fn=log_fn, pipeline_cls=timed_pipeline(starts, hook))
+    first["loss"] = losses[0]
     launches = FK.flash_attention.launches
     peak = torch.cuda.max_memory_allocated() / 1e9
     n_attn = attention_layers(cfg)
@@ -1507,15 +1646,7 @@ def full_width_training(say):
                                    PM.tree_leaves(init)) if torch.equal(a, b)]
     del init
     check(same == [], f"13c: parameters unchanged by training: {same}")
-    steps = []
-    for i, (a, b) in enumerate(zip(starts, ends)):
-        s = b - a
-        steps.append({"ms": s * 1e3, "tok_s": tokens / s,
-                      "mfu": 6 * n_params * tokens / s / BF16_FLOPS_PER_S})
-        say(f"  step {i}: {s * 1e3:.1f} ms, {tokens / s:.1f} tokens/s, "
-            f"model-FLOPs share {steps[-1]['mfu']:.4f} (6 x "
-            f"{n_params / 1e9:.3f} B x {tokens} tokens over the step, "
-            f"against 989 TFLOP/s bf16)")
+    steps = step_times(starts, ends, n_params, tokens, say)
     say(f"  losses {losses}; peak {peak:.2f} GB; {launches} flash launches "
         f"({n_attn} layers x 2 x {TRAIN_ACCUM} microbatches x {TRAIN_STEPS} "
         f"steps); every parameter leaf changed; optimizer step "
@@ -1523,7 +1654,7 @@ def full_width_training(say):
     res = {"params": n_params, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
            "accum": TRAIN_ACCUM, "losses": losses, "steps": steps,
            "peak_gb": peak, "flash_launches": launches}
-    return res, state, oc
+    return res, state, oc, first
 
 
 def checkpoint_round_trip(state, say) -> dict:
@@ -1613,6 +1744,218 @@ def recovery_on_card(say) -> dict:
         f"checkpoint step {last}")
     return {"step": state.step, "restarts": stats.restarts,
             "failed_hosts": stats.failed_hosts}
+
+
+# ------------------------------------------------------------ phase 14 ---
+#: phase 14b against 13c's first step: the loss, relative, and every
+#: parameter leaf's relnorm (the embedding backward's atomics are the
+#: only expected difference)
+MESH_LOSS_REL, MESH_LEAF_RELNORM = 1e-6, 1e-5
+#: phase 14b's steps: the first is held against 13c's, the second timed
+#: warm (a run's first step carries its warm-up)
+MESH_STEPS = 2
+#: phase 14c: MiniCPM-2B's embedding gradient (padded vocab x d_model)
+EMBED_GRAD_SHAPE = (122753, 2304)
+#: phase 14d: a tensor the permutes move
+PERMUTE_SHAPE = (4096, 2304)
+
+
+def mesh_training(first, oc, say) -> dict:
+    """Phase 14b: 13c's first two steps again, through
+    ``run_training(cfg, shape, mesh)`` on the smoke mesh (NCCL, world
+    size 1): the rank's rows (all of them), the f32 gradient all-reduce,
+    ZeRO-1 moments and the parameter all-gather.  The first step is held
+    against 13c's record of its first; the second is the warm step time.
+    Returns the result; the state is dropped."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.training.train_loop import run_training
+    cfg = get_arch(TRAIN_ARCH)
+    n_params = PM.count_params(M.model_specs(cfg))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mesh = make_smoke_mesh("cuda")
+    starts, ends, mine = [], [], {}
+
+    def log_fn(msg):
+        ends.append(time.perf_counter())
+        say(f"    {msg}")
+
+    torch.cuda.reset_peak_memory_stats()
+    FK.flash_attention.launches = 0
+    with first_step_record(mine) as hook:
+        state, losses, stats = run_training(
+            cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh,
+            steps=MESH_STEPS, oc=oc, accum=TRAIN_ACCUM, log_every=1,
+            log_fn=log_fn, pipeline_cls=timed_pipeline(starts, hook))
+    launches = FK.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = attention_layers(cfg) * 2 * TRAIN_ACCUM * MESH_STEPS
+    check(launches == want, f"14b: {launches} flash launches, not {want}")
+    steps = step_times(starts, ends, n_params, tokens, say)
+    loss_rel = abs(losses[0] - first["loss"]) / abs(first["loss"])
+    stats_now = mine["stats"]
+    rel = {}
+    for (path, _), a, b in zip(PM.tree_leaves_with_paths(state.params),
+                               mine["host"], first["host"]):
+        rel[path] = _relnorm(a.to("cuda"), b.to("cuda"))
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    sums = max(abs(stats_now[p][0] - s) / max(n, 1e-30) for p, (s, n) in
+               first["stats"].items())
+    norms = max(abs(stats_now[p][1] - n) / max(n, 1e-30) for p, (_, n) in
+                first["stats"].items())
+    say(f"  loss {losses[0]!r} against 13c's first step {first['loss']!r} "
+        f"(relative {loss_rel:.3g}); worst leaf relnorm {worst[1]:.3g} "
+        f"({worst[0]}); f64 sums differ by at most {sums:.3g} and norms by "
+        f"{norms:.3g} of the leaf's norm; peak {peak:.2f} GB; {launches} "
+        f"flash launches")
+    check(loss_rel <= MESH_LOSS_REL,
+          f"14b: loss {losses[0]} against {first['loss']}")
+    check(worst[1] <= MESH_LEAF_RELNORM, f"14b: leaf relnorm {worst}")
+    check(int(state.opt_state["step"]) == MESH_STEPS
+          and stats.restarts == 0,
+          f"14b: optimizer step {int(state.opt_state['step'])}")
+    del state, mine
+    return {"backend": "nccl", "loss": losses[0], "loss_13c": first["loss"],
+            "loss_rel": loss_rel, "worst_leaf_relnorm": worst[1],
+            "worst_leaf": worst[0], "sum_rel": sums, "norm_rel": norms,
+            "steps": steps, "peak_gb": peak, "flash_launches": launches}
+
+
+def mesh_profile_child() -> None:
+    """Phase 14b's profiled step, in a process of its own (the card's
+    tracer records kernels in a process's first profiler session only,
+    and 13c's is the parent's): a warm-up step through ``run_training``
+    on the smoke mesh, then one step under the profiler; prints the
+    report as JSON on its last line."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import run_training
+    FK.load_library()
+    cfg = get_arch(TRAIN_ARCH)
+    oc = OptConfig(schedule=cfg.lr_schedule, total_steps=TRAIN_STEPS,
+                   warmup_steps=max(TRAIN_STEPS // 10, 1))
+    mesh = make_smoke_mesh("cuda")
+    state, _, _ = run_training(
+        cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh,
+        steps=1, oc=oc, accum=TRAIN_ACCUM, log_every=0)
+    say = lambda *a: print(*a, flush=True)          # noqa: E731
+    rep = profile_train_step(state, oc, say, mesh)
+    dist.destroy_process_group()
+    print(json.dumps(rep))
+
+
+def mesh_profile(say) -> dict:
+    """Run ``mesh_profile_child`` in a fresh interpreter; its report."""
+    res = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke.mesh_profile_child()"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    for line in res.stdout.splitlines()[:-1]:
+        say(line)
+    check(res.returncode == 0, f"14b profile: exit {res.returncode}\n"
+          f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.splitlines()[-1])
+
+
+def mesh_compression(say) -> dict:
+    """Phase 14c: ``quantize``/``dequantize`` of a leaf of the embedding
+    gradient's shape on the card, bit-equal to the CPU's;
+    ``compressed_psum_leaf`` through the NCCL group (what it sent plus the
+    new error is the input plus the old error, to f32 rounding); and
+    ``cross_pod_grad_sync`` over a gradient tree of MiniCPM-2B's leaves
+    (bf16, seeded normal draws) on a (1, 1, 1) (pod, data, model) mesh,
+    timed beside its HBM bound (gradient and error read once, reduced
+    gradient and new error written once)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import compression as C
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    gen = torch.Generator(device="cuda").manual_seed(CASE_SEED)
+    g = torch.randn(EMBED_GRAD_SHAPE, generator=gen, device="cuda")
+    q, sc, n = C.quantize(g)
+    qh, sh, nh = C.quantize(g.cpu())
+    same = (n == nh and torch.equal(q.cpu(), qh)
+            and sc.cpu().view(torch.int32).equal(sh.view(torch.int32)))
+    back = C.dequantize(q, sc, n, g.shape).cpu()
+    same_back = back.view(torch.int32).equal(
+        C.dequantize(qh, sh, nh, g.shape).view(torch.int32))
+    check(same and same_back, "14c: quantize or dequantize on the card is "
+          "not bit-equal to the CPU's")
+    del qh, sh, back
+    pod = init_device_mesh("cuda", (1, 1, 1),
+                           mesh_dim_names=("pod", "data", "model"))
+    err = 1e-3 * torch.randn(EMBED_GRAD_SHAPE, generator=gen, device="cuda")
+    red, new_err = C.compressed_psum_leaf(g, err, pod.get_group("pod"))
+    resid = float(((red + new_err) - (g + err)).abs().max())
+    scale = float((g + err).abs().max())
+    check(resid <= 2 * torch.finfo(torch.float32).eps * scale,
+          f"14c: sent + new error differs from g + err by {resid}")
+    del g, q, sc, err, red, new_err
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch(TRAIN_ARCH)
+    grads = PM.tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device="cuda").to(torch.bfloat16),
+        M.model_specs(cfg))
+    errs = C.init_error_feedback(grads)
+    n_el = sum(t.numel() for t in PM.tree_leaves(grads))
+    nbytes = n_el * (2 + 4 + 2 + 4)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C.cross_pod_grad_sync(grads, errs, pod)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = min(times)
+    say(f"  quantize/dequantize of {EMBED_GRAD_SHAPE} f32 bit-equal to the "
+        f"CPU's; compressed_psum_leaf: |sent + new_err - (g + err)| "
+        f"{resid:.3g} (of {scale:.3g}); cross_pod_grad_sync over "
+        f"{len(PM.tree_leaves(grads))} leaves, {n_el / 1e9:.3f} B elements: "
+        f"{times} ms, best {ms:.2f} ms against the bound {bound_ms:.2f} ms "
+        f"({nbytes / 1e9:.2f} GB at 3.35 TB/s), {bound_ms / ms:.3f} of it")
+    del grads, errs
+    return {"bit_equal": True, "resid": resid, "sync_ms": times,
+            "sync_best_ms": ms, "sync_bound_ms": bound_ms,
+            "sync_bytes": nbytes}
+
+
+def mesh_resharding(say) -> dict:
+    """Phase 14d: both permutes on the 1x1 smoke mesh, whose rings have
+    one member: the bytes come back equal to the input."""
+    import torch
+    from repro_torch.distributed.resharding import (
+        multipath_permute, single_path_permute)
+    from repro_torch.launch.mesh import make_smoke_mesh
+    mesh = make_smoke_mesh("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(CASE_SEED)
+    x = torch.randn(PERMUTE_SHAPE, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    outs = {"multipath": multipath_permute(x, mesh),
+            "single_path": single_path_permute(x, mesh)}
+    for k, y in outs.items():
+        check(y.is_cuda and torch.equal(y.view(torch.int16),
+                                        x.view(torch.int16)),
+              f"14d: {k}_permute changed the bytes on a 1x1 mesh")
+    say(f"  multipath_permute and single_path_permute of {PERMUTE_SHAPE} "
+        f"bf16 on the 1x1 mesh: bytes equal to the input")
+    return {"shape": PERMUTE_SHAPE, "equal": True}
 
 
 # ------------------------------------------------------- phases 10-11 ---
@@ -2349,7 +2692,7 @@ def main() -> int:
     say(f"[13c] {TRAIN_ARCH} at full width through run_training: "
         f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
         f"{TRAIN_ACCUM} microbatches, bf16, f32 AdamW moments, WSD")
-    training, train_state, train_oc = full_width_training(say)
+    training, train_state, train_oc, first_step = full_width_training(say)
     flash_by_phase["13c"] = training["flash_launches"]
     launches["flash_attention"] += training["flash_launches"]
     gc.collect()
@@ -2366,6 +2709,38 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     recovery = recovery_on_card(say)
+    say(f"  flash_attention launches by phase: {flash_by_phase}, in all "
+        f"{launches['flash_attention']}; {time.perf_counter() - t0:.2f} s")
+
+    # ---- the mesh training path, counted from 14b's start to its end -----
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    make_smoke_mesh("cuda")
+    backend = dist.get_backend()
+    say(f"[14a] make_smoke_mesh('cuda'): process group backend {backend}, "
+        f"world size {dist.get_world_size()}")
+    check(backend == "nccl", f"14a: the card's mesh runs on {backend}")
+    say(f"[14b] {TRAIN_ARCH} at full width through run_training on the 1x1 "
+        f"NCCL mesh: 13c's first {MESH_STEPS} steps again")
+    mesh_train = mesh_training(first_step, train_oc, say)
+    del first_step
+    flash_by_phase["14b"] = mesh_train["flash_launches"]
+    launches["flash_attention"] += mesh_train["flash_launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_train["profile"] = mesh_profile(say)
+    say(f"  {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    say("[14c] int8 gradient compression on the card")
+    mesh_comp = mesh_compression(say)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("[14d] resharding permutes on the 1x1 mesh")
+    mesh_perm = mesh_resharding(say)
+    dist.destroy_process_group()
     say(f"  flash_attention launches by phase: {flash_by_phase}, in all "
         f"{launches['flash_attention']}; {time.perf_counter() - t0:.2f} s")
 
@@ -2419,6 +2794,9 @@ def main() -> int:
     say(json.dumps({"training": {
         "reduced_worst_err": train_reduced, "gradient": gradient,
         "full_width": training, "checkpoint": ckpt, "recovery": recovery}}))
+    say(json.dumps({"mesh": {"backend": backend, "training": mesh_train,
+                             "compression": mesh_comp,
+                             "resharding": mesh_perm}}))
     say(json.dumps({"chaos": {k: chaos[k] for k in (
         "faults", "fired", "retries", "failures", "recovered_stages",
         "replans", "checked", "held")}, "swap": swap}))

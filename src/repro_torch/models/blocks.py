@@ -16,10 +16,12 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, _pattern_period
+from repro_torch.distributed.mesh import Rules, constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
@@ -30,13 +32,21 @@ from repro_torch.models.param import PSpec
 
 @dataclass
 class ModelCtx:
-    """What the JAX context carries, on one card (world size 1): no
-    mesh, so ``cons`` (a sharding constraint there) is the identity.
-    The logical-axis rules wait for the ``distributed/`` port."""
+    """The JAX context's fields.  ``mesh`` is a ``DeviceMesh`` or None
+    (one device, no process group); ``cons`` is the reference's sharding
+    constraint, which on a rank's local tensor is the identity
+    (``distributed/mesh.py::constrain``)."""
     cfg: ArchConfig
+    rules: Rules | None = None
+    mesh: Any = None
+    data_axes: tuple[str, ...] = ()
+    fsdp: bool = False
+    batch_sharded: bool = True
 
     def cons(self, x, logical):
-        return x
+        if self.mesh is None:
+            return x
+        return constrain(x, logical, self.rules, self.mesh)
 
 
 # ------------------------------------------------------------ patterns -----

@@ -21,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.distributed.mesh import data_axes, make_rules, mesh_axis_size
 from repro_torch.models import layers as L
 from repro_torch.models import param as PM
 from repro_torch.models.blocks import (
@@ -39,9 +40,44 @@ from repro_torch.models.blocks import (
 from repro_torch.models.param import PSpec, stack
 
 
-def build_ctx(cfg: ArchConfig, shape: ShapeSpec | None = None) -> ModelCtx:
-    del shape                   # the mesh rules that read it wait
-    return ModelCtx(cfg=cfg)
+#: logical axes the activation constraints (``ctx.cons``) name
+_ACT_LOGICAL = ("seq", "act_embed", "vocab", "heads", "kv_seq")
+
+
+def build_ctx(cfg: ArchConfig, shape: ShapeSpec | None = None,
+              mesh=None) -> ModelCtx:
+    """The context for one (arch, shape, mesh) cell, with the reference's
+    rules.  Without a mesh: one device, no rules.
+
+    On a mesh the port splits only the batch: rules that would shard a
+    weight, a cache or an activation over a mesh axis of more than one
+    member raise ``NotImplementedError`` (at world size > 1 that is every
+    cell but the small-dense DP ones in training)."""
+    if mesh is None:
+        return ModelCtx(cfg=cfg)
+    rules = make_rules(cfg, shape, mesh)
+    da = data_axes(mesh)
+    dp = mesh_axis_size(mesh, da)
+    named = {n for _, p in PM.tree_leaves_with_paths(model_specs(cfg))
+             for n in p.logical} | set(_ACT_LOGICAL)
+    if not shape.is_training:
+        named |= {n for _, p in PM.tree_leaves_with_paths(
+            cache_pspecs(cfg, shape)) for n in p.logical}
+    wide = sorted((n, rules[n]) for n in named - {None, "batch"}
+                  if n in rules and mesh_axis_size(mesh, rules[n]) > 1)
+    if wide:
+        raise NotImplementedError(
+            f"{cfg.name} {shape.name}: the rules shard {dict(wide)} over "
+            "mesh axes of more than one member; weight sharding (TP, FSDP, "
+            "expert parallelism) is the next slice (ROADMAP.md §1)")
+    return ModelCtx(
+        cfg=cfg,
+        rules=rules,
+        mesh=mesh,
+        data_axes=da,
+        fsdp=shape.is_training,
+        batch_sharded=shape.global_batch % dp == 0,
+    )
 
 
 # -------------------------------------------------------------- specs ------

@@ -5,8 +5,9 @@ Models declare their parameters as trees (dicts and lists) of ``PSpec``
 From one spec tree the port derives real tensors (``initialize``) and
 the parameter count; ``from_numpy`` carries the JAX package's weights
 (and optimizer state) over into a tree of the same structure, and
-``trainable`` marks a tree's leaves for autograd.  The logical axes are
-kept for the ``distributed/`` port; on one card nothing reads them.
+``trainable`` marks a tree's leaves for autograd.  On a mesh, the
+logical axes give each leaf its ``shardings`` and a rank its
+``shard_local`` slices (``distributed/mesh.py``).
 """
 from __future__ import annotations
 
@@ -81,6 +82,32 @@ def stack(tree, n: int, logical: str = "stack"):
     )
 
 
+def shardings(tree, rules, mesh):
+    """The ``Sharding`` (mesh, spec) of every leaf of a spec tree under
+    ``rules``."""
+    from repro_torch.distributed.mesh import sharding_for
+    return tree_map(lambda p: sharding_for(p.shape, p.logical, rules, mesh),
+                    tree)
+
+
+def shard_local(tree, rules, mesh, coord=None):
+    """The slice of every leaf of a spec tree that the rank at mesh
+    coordinate ``coord`` (this process's by default) holds under
+    ``rules``: a tree of index tuples for ``from_numpy(local=...)``."""
+    from repro_torch.distributed.mesh import coordinate, local_slice, spec_for
+    coord = coordinate(mesh) if coord is None else tuple(coord)
+    return tree_map(lambda p: _Index(local_slice(
+        p.shape, spec_for(p.shape, p.logical, rules, mesh), mesh, coord)),
+        tree)
+
+
+@dataclass(frozen=True)
+class _Index:
+    """One leaf's slice, kept whole by ``tree_map`` (a bare tuple would be
+    walked as a subtree)."""
+    index: tuple
+
+
 def abstract(tree):
     """Shape-and-dtype stand-ins for a spec tree: tensors on the ``meta``
     device, which hold no storage (the JAX package's ShapeDtypeStructs)."""
@@ -146,13 +173,19 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def from_numpy(tree, device="cuda"):
+def from_numpy(tree, device="cuda", local=None):
     """The JAX package's parameter, cache or optimizer-state tree, as
     numpy arrays, into the port's tree of the same structure, shapes and
     dtypes on ``device``: bf16 through its bits, the int8 moments'
-    {"q", "scale"} leaves and the 0-d int32 ``step`` as they are."""
+    {"q", "scale"} leaves and the 0-d int32 ``step`` as they are.  With
+    ``local`` (``shard_local``'s tree), each leaf is cut to the rank's
+    slice before it is copied, so a rank builds only its own shards."""
     device = torch.device(device)
-    return tree_map(lambda a: _to_tensor(a).to(device), tree)
+    if local is None:
+        return tree_map(lambda a: _to_tensor(a).to(device), tree)
+    flat = [_to_tensor(np.asarray(a)[ix.index]).to(device) for a, ix in
+            zip(tree_leaves(tree), tree_leaves(local))]
+    return tree_unflatten(tree, flat)
 
 
 def trainable(tree):

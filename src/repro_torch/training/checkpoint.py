@@ -10,6 +10,14 @@ bfloat16, so a bf16 leaf is stored as its uint16 bits and named
 directory and renames it.  ``restore`` loads into the structure of a
 target tree, checks every shape, and puts each leaf on its target's
 device.
+
+On a mesh, every rank calls ``save`` and ``restore`` with the same
+``shardings`` (a tree of ``mesh.Sharding``, one per leaf): ``save``
+all-gathers each sharded leaf, and rank 0 alone writes the layout above,
+unchanged; ``restore`` reads each rank's ``local_slice`` of every leaf
+(memory-mapped, so a rank reads only its slice), for any mesh, a
+degraded one included, as the reference's ``device_put`` with new
+``NamedSharding``s does.
 """
 from __future__ import annotations
 
@@ -21,7 +29,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.mesh import (
+    coordinate, entry_axes, gather_full, local_slice, mesh_axis_size,
+    spec_axes)
 from repro_torch.models import param as PM
 
 
@@ -40,8 +52,32 @@ def _host(t: torch.Tensor) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def save(ckpt_dir: str | Path, step: int, tree, *, extra: dict | None = None):
-    """Synchronous checkpoint save; atomic via tmp-dir rename."""
+def _writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def gathered(tree, shardings):
+    """``tree`` with every leaf whole: each sharded leaf all-gathered
+    (a collective: every rank of the mesh calls it)."""
+    if shardings is None:
+        return tree
+    out = []
+    for (_, leaf), s in zip(_leaves(tree), PM.tree_leaves(shardings)):
+        mesh, spec = s
+        shape = tuple(d * mesh_axis_size(mesh, entry_axes(p))
+                      for d, p in zip(leaf.shape, spec))
+        out.append(gather_full(leaf.detach(), shape, spec, mesh)
+                   if spec_axes(spec) else leaf)
+    return PM.tree_unflatten(tree, out)
+
+
+def save(ckpt_dir: str | Path, step: int, tree, *, extra: dict | None = None,
+         shardings=None):
+    """Synchronous checkpoint save; atomic via tmp-dir rename.  With
+    ``shardings``, every rank calls it and rank 0 writes."""
+    tree = gathered(tree, shardings)
+    if not _writer():
+        return None
     ckpt_dir = Path(ckpt_dir)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f".tmp_step_{step:08d}"
@@ -69,8 +105,11 @@ class AsyncCheckpointer:
     def __init__(self):
         self._thread: threading.Thread | None = None
 
-    def save(self, ckpt_dir, step, tree, *, extra=None):
+    def save(self, ckpt_dir, step, tree, *, extra=None, shardings=None):
         self.wait()
+        tree = gathered(tree, shardings)
+        if not _writer():
+            return
         # copied to the host up front, so the training step can update
         # the parameters in place while the thread writes
         snapshot = PM.tree_map(lambda t: t.detach().to("cpu", copy=True),
@@ -94,19 +133,28 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str | Path, step: int, target_tree):
+def restore(ckpt_dir: str | Path, step: int, target_tree, shardings=None):
     """Restore into the structure of ``target_tree``: each leaf
     shape-checked against its target and put on the target's device, in
-    the dtype it was saved in.  Returns (tree, manifest)."""
+    the dtype it was saved in.  With ``shardings`` (possibly for another
+    mesh than the checkpoint was written under), each target leaf is this
+    rank's ``local_slice`` of the saved array.  Returns (tree,
+    manifest)."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     with open(d / "manifest.json") as f:
         manifest = json.load(f)
     meta = {m["key"]: m for m in manifest["leaves"]}
+    shd = (PM.tree_leaves(shardings) if shardings is not None
+           else [None] * len(PM.tree_leaves(target_tree)))
     out = []
-    for key, tgt in _leaves(target_tree):
+    for (key, tgt), s in zip(_leaves(target_tree), shd):
         if key not in meta:
             raise KeyError(f"checkpoint missing leaf {key}")
-        t = torch.from_numpy(np.load(d / f"{key}.npy"))
+        arr = np.load(d / f"{key}.npy", mmap_mode="r")
+        if s is not None:
+            mesh, spec = s
+            arr = arr[local_slice(arr.shape, spec, mesh, coordinate(mesh))]
+        t = torch.from_numpy(np.array(arr, order="C"))
         if meta[key]["dtype"] == "bfloat16":
             t = t.view(torch.bfloat16)
         if tuple(t.shape) != tuple(tgt.shape):

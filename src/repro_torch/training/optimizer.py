@@ -12,6 +12,7 @@ MiniCPM's warmup-stable-decay (WSD) schedule is first-class.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -121,9 +122,50 @@ def opt_pspecs(param_specs, state_dtype: str = "f32"):
             "step": PSpec((), (), torch.int32, "zeros")}
 
 
-def init_opt_state(param_specs, state_dtype: str = "f32", device="cuda"):
-    """The zero optimizer state for ``param_specs`` on ``device``."""
-    return PM.initialize(opt_pspecs(param_specs, state_dtype), 0, device)
+def zero1_shardings(param_specs, state_dtype: str, rules, mesh):
+    """The ``Sharding`` of every parameter's moments under the optimizer
+    rules (``mesh.make_opt_rules``), one per parameter leaf.  An int8
+    moment's codes and scales take the parameter's spec; a shard boundary
+    that would split a 128-block of the last axis raises."""
+    from repro_torch.distributed.mesh import entry_axes, mesh_axis_size
+    shd = PM.shardings(param_specs, rules, mesh)
+    if state_dtype != "int8":
+        return shd
+    for (path, p), (_, s) in zip(PM.tree_leaves_with_paths(param_specs),
+                                 PM.tree_leaves_with_paths(shd)):
+        if not _quantized_leaf(p) or not p.shape:
+            continue
+        n = mesh_axis_size(mesh, entry_axes(s.spec[-1]))
+        mom = _moment_pspec(p, state_dtype)
+        same = all(PM.shardings(mom[k], rules, mesh).spec == s.spec
+                   for k in mom)
+        if not same or (n > 1 and p.shape[-1] % (_QBLOCK * n)):
+            raise ValueError(
+                f"{path}: int8 moments split {p.shape[-1]} columns {n} "
+                f"ways across 128-blocks ({s.spec})")
+    return shd
+
+
+def init_opt_state(param_specs, state_dtype: str = "f32", device="cuda", *,
+                   rules=None, mesh=None):
+    """The zero optimizer state for ``param_specs`` on ``device``.  With
+    ``rules`` and ``mesh`` (ZeRO-1), only this rank's moment shards: each
+    moment leaf's ``local_slice`` under ``zero1_shardings``."""
+    if mesh is None:
+        return PM.initialize(opt_pspecs(param_specs, state_dtype), 0, device)
+    from repro_torch.distributed.mesh import local_shape
+    shd = PM.tree_leaves(zero1_shardings(param_specs, state_dtype, rules,
+                                         mesh))
+
+    def cut(p, s):
+        return tree_map(lambda x: dataclasses.replace(
+            x, shape=local_shape(x.shape, s.spec, mesh)),
+            _moment_pspec(p, state_dtype))
+    mk = PM.tree_unflatten(param_specs, [
+        cut(p, s) for p, s in zip(PM.tree_leaves(param_specs), shd)])
+    return PM.initialize({"m": mk, "v": mk,
+                          "step": PSpec((), (), torch.int32, "zeros")},
+                         0, device)
 
 
 def _zip_leaves(p, *trees):
@@ -156,12 +198,17 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update(oc: OptConfig, params, grads, opt_state):
+def adamw_update(oc: OptConfig, params, grads, opt_state, shardings=None):
     """One AdamW step.  Writes ``params`` and ``opt_state`` (m, v and the
     step) in place and returns (params, opt_state, metrics).  The
     gradient clip is folded into the update: each leaf's gradient is
     scaled in f32 and rounded back to its own dtype, as the reference's
-    ``clip_by_global_norm`` leaves it, before the moments read it."""
+    ``clip_by_global_norm`` leaves it, before the moments read it.
+
+    With ``shardings`` (``zero1_shardings``: ZeRO-1), the moments are this
+    rank's shards and the parameters and gradients whole: the rank
+    updates its ``local_slice`` of each parameter from its moment shard,
+    then all-gathers the new parameter over the spec's axes."""
     gnorm = global_norm(grads)
     dev = gnorm.device
     c = lambda v: _f32(v, dev)          # noqa: E731
@@ -195,11 +242,10 @@ def adamw_update(oc: OptConfig, params, grads, opt_state):
             else:
                 st.copy_(new)
 
-    for p, g, m, v in _zip_leaves(params, grads, opt_state["m"],
-                                  opt_state["v"]):
+    def update_leaf(p, g, m, v):
         if p.dim() < 2:
             upd(p, g, m, v)
-            continue
+            return
         # elementwise along the leading dim (the int8 blocks run along the
         # last), so slices of it update exactly as the whole leaf would
         n = max(1, _UPDATE_SLICE // max(p[0].numel(), 1))
@@ -210,4 +256,20 @@ def adamw_update(oc: OptConfig, params, grads, opt_state):
                          if isinstance(st, dict) else st.split(n))
         for args in zip(*parts):
             upd(*args)
+
+    if shardings is None:
+        for p, g, m, v in _zip_leaves(params, grads, opt_state["m"],
+                                      opt_state["v"]):
+            update_leaf(p, g, m, v)
+        return params, opt_state, {"lr": lr, "grad_norm": gnorm}
+
+    from repro_torch.distributed.mesh import (
+        coordinate, gather_full, local_slice, spec_axes)
+    for p, g, m, v, s in _zip_leaves(params, grads, opt_state["m"],
+                                     opt_state["v"], shardings):
+        coord = coordinate(s.mesh)
+        sl = local_slice(tuple(p.shape), s.spec, s.mesh, coord)
+        update_leaf(p[sl], g[sl], m, v)
+        if spec_axes(s.spec):
+            gather_full(p[sl], tuple(p.shape), s.spec, s.mesh, out=p)
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}

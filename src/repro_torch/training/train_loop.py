@@ -2,22 +2,34 @@
 ``src/repro/training/train_loop.py``: data pipeline, train step, async
 checkpoints and fault recovery.  Used by ``launch/train.py``.
 
-The reference's loop without its mesh: the model runs on one device,
-``cuda`` unless the caller asks for the CPU.  The step updates the
-parameters and the optimizer state in place; the checkpointer copies
-them to the host before its thread writes.
+The model runs on ``cuda`` unless the caller asks for the CPU.  The step
+updates the parameters and the optimizer state in place; the
+checkpointer copies them to the host before its thread writes.
+
+With a mesh (a ``DeviceMesh``; ``None`` is one device and no process
+group), every rank runs this loop: it draws the same global batch from
+the pipeline (keyed by seed and step), the step keeps the rank's rows
+and all-reduces the gradients, and the optimizer state is ZeRO-1's
+shards (``optimizer.zero1_shardings`` under ``mesh.make_opt_rules``).
+Every rank takes part in a checkpoint's gather, rank 0 writes it, and a
+restore reads each rank's slices.  The recovery path
+(``distributed/fault.py``) is the same on every rank.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch.distributed as dist
+
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.distributed import fault as F
+from repro_torch.distributed.mesh import make_opt_rules
 from repro_torch.models import model as M
 from repro_torch.models import param as PM
 from repro_torch.training import checkpoint as CKPT
-from repro_torch.training.optimizer import OptConfig, init_opt_state
+from repro_torch.training.optimizer import (
+    OptConfig, init_opt_state, opt_pspecs, zero1_shardings)
 from repro_torch.training.train_step import build_train_step
 
 
@@ -29,7 +41,7 @@ class TrainState:
     step: int = 0
 
 
-def run_training(cfg: ArchConfig, shape: ShapeSpec, *, steps: int,
+def run_training(cfg: ArchConfig, shape: ShapeSpec, mesh=None, *, steps: int,
                  oc: OptConfig | None = None, accum: int = 1,
                  ckpt_dir: str | None = None, resume: bool = False,
                  policy: F.FaultPolicy | None = None,
@@ -39,32 +51,47 @@ def run_training(cfg: ArchConfig, shape: ShapeSpec, *, steps: int,
     checkpoint, with ``resume``).  Returns (state, losses, FaultStats)."""
     oc = oc or OptConfig(schedule=cfg.lr_schedule)
     policy = policy or F.FaultPolicy(checkpoint_every=0)
-    ctx = M.build_ctx(cfg, shape)
+    ctx = M.build_ctx(cfg, shape, mesh)
     pspecs = M.model_specs(cfg)
-    train_step = build_train_step(cfg, ctx, oc, accum)
+    opt_rules = zshd = tree_shd = None
+    if mesh is not None:
+        opt_rules = make_opt_rules(cfg, shape, mesh, ctx.rules)
+        zshd = zero1_shardings(pspecs, oc.state_dtype, opt_rules, mesh)
+        tree_shd = {"params": PM.shardings(pspecs, ctx.rules, mesh),
+                    "opt": PM.shardings(opt_pspecs(pspecs, oc.state_dtype),
+                                        opt_rules, mesh)}
+    train_step = build_train_step(cfg, ctx, oc, accum, zshd)
 
     def fresh_state():
         params = PM.trainable(M.init_params(cfg, 0, device))
-        opt_state = init_opt_state(pspecs, oc.state_dtype, device)
+        opt_state = init_opt_state(pspecs, oc.state_dtype, device,
+                                   rules=opt_rules, mesh=mesh)
         return TrainState(params, opt_state,
                           pipeline_cls(cfg, shape, device=device))
 
     ckpt = CKPT.AsyncCheckpointer()
 
+    def wait_for_writes():
+        ckpt.wait()
+        if mesh is not None:
+            dist.barrier()          # rank 0's write is every rank's read
+
     def save_fn(state: TrainState, step: int):
         if ckpt_dir:
             ckpt.save(ckpt_dir, state.step,
                       {"params": state.params, "opt": state.opt_state},
-                      extra={"pipeline": state.pipeline.state()})
+                      extra={"pipeline": state.pipeline.state()},
+                      shardings=tree_shd)
 
     def restore_fn():
-        ckpt.wait()
+        wait_for_writes()
         last = CKPT.latest_step(ckpt_dir) if ckpt_dir else None
         if last is None:
             return fresh_state(), 0
         st = fresh_state()
         tree, manifest = CKPT.restore(
-            ckpt_dir, last, {"params": st.params, "opt": st.opt_state})
+            ckpt_dir, last, {"params": st.params, "opt": st.opt_state},
+            tree_shd)
         pipe = pipeline_cls.from_state(cfg, shape,
                                        manifest["extra"]["pipeline"],
                                        device=device)
@@ -96,5 +123,5 @@ def run_training(cfg: ArchConfig, shape: ShapeSpec, *, steps: int,
         step_fn, state, steps - start, policy,
         save_fn=save_fn, restore_fn=restore_fn,
         failure_injector=failure_injector)
-    ckpt.wait()
+    wait_for_writes()
     return state, losses, stats

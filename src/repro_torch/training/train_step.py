@@ -7,23 +7,56 @@ j + 2a, ...  With one microbatch the gradients stay in the parameters'
 dtype; with more, each microbatch's gradients are added into f32
 buffers and divided by their count, and the loss is the mean over
 microbatches.  ``adamw_update`` then writes the parameters and the
-optimizer state in place.  On one card the data-parallel world size is
-1, so ``default_accum`` takes one batch row per microbatch.
+optimizer state in place.
+
+On a mesh (``ctx.mesh``) the step runs on every rank: the rank takes its
+rows of the global batch (contiguous, in the ``batch`` spec's chunk
+order, ``mesh.local_slice``), runs its microbatches, and all-reduces
+each gradient leaf in f32 over the axes that split the batch, as a sum
+then divided by their size (gloo has no average); the loss and metrics
+likewise.  The reference's loss is a token mean over the global batch
+and the shards are equal, so the mean of rank means is the global mean,
+and the clip sees the full gradients.  With ``shardings`` the optimizer
+state is ZeRO-1's (``optimizer.zero1_shardings``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.distributed.mesh import (
+    all_reduce_axes, coordinate, data_axes, local_slice, mesh_axis_size,
+    spec_axes, spec_for, use_small_dense_dp)
 from repro_torch.models import model as M
 from repro_torch.models import param as PM
 from repro_torch.training.optimizer import OptConfig, adamw_update
 
 
-def default_accum(shape: ShapeSpec, cfg: ArchConfig | None = None) -> int:
-    """One batch row per device per microbatch, at world size 1."""
-    del cfg                     # the small-dense rule reads the mesh
-    return max(1, shape.global_batch)
+def default_accum(shape: ShapeSpec, mesh=None,
+                  cfg: ArchConfig | None = None) -> int:
+    """One batch row per device per microbatch (when divisible); without
+    a mesh the world is one device."""
+    if mesh is None:
+        return max(1, shape.global_batch)
+    dp = mesh_axis_size(mesh, data_axes(mesh))
+    if cfg is not None and use_small_dense_dp(cfg, shape, mesh):
+        # batch shards over EVERY axis: one row per device, no accum
+        dp *= mesh_axis_size(mesh, ("model",))
+    if shape.global_batch % dp:
+        return 1
+    return max(1, shape.global_batch // dp)
+
+
+def local_rows(ctx, batch):
+    """(the rank's rows of every input, the mesh axes that split them)."""
+    coord = coordinate(ctx.mesh)
+    out, axes = {}, ()
+    for k, a in batch.items():
+        logical = ("batch",) + (None,) * (a.dim() - 1)
+        spec = spec_for(tuple(a.shape), logical, ctx.rules, ctx.mesh)
+        out[k] = a[local_slice(tuple(a.shape), spec, ctx.mesh, coord)]
+        axes = spec_axes(spec)
+    return out, axes
 
 
 def split_microbatches(batch, accum: int) -> list[dict]:
@@ -48,14 +81,19 @@ def value_and_grad(cfg: ArchConfig, ctx, params, batch):
             PM.tree_unflatten(params, grads))
 
 
-def build_train_step(cfg: ArchConfig, ctx, oc: OptConfig, accum: int):
+def build_train_step(cfg: ArchConfig, ctx, oc: OptConfig, accum: int,
+                     shardings=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, with ``loss``, ``lr`` and ``grad_norm`` in the metrics
     (and ``xent``, ``aux`` with one microbatch, as the reference).
     ``params`` must be ``param.trainable``; it and ``opt_state`` are
-    updated in place and returned."""
+    updated in place and returned.  On a mesh, ``batch`` is the global
+    batch and ``shardings`` the moments' (ZeRO-1)."""
 
     def train_step(params, opt_state, batch):
+        axes = None
+        if ctx.mesh is not None:
+            batch, axes = local_rows(ctx, batch)
         if accum == 1:
             loss, metrics, grads = value_and_grad(cfg, ctx, params, batch)
         else:
@@ -72,7 +110,31 @@ def build_train_step(cfg: ArchConfig, ctx, oc: OptConfig, accum: int):
             grads = PM.tree_unflatten(params, [a.div_(n) for a in acc])
             loss = loss / n
             metrics = {}
-        params, opt_state, om = adamw_update(oc, params, grads, opt_state)
+        if axes is not None:
+            grads, loss, metrics = _mean_over(ctx.mesh, axes, grads,
+                                              dict(metrics, loss=loss))
+        params, opt_state, om = adamw_update(oc, params, grads, opt_state,
+                                             shardings)
         return params, opt_state, dict(metrics, loss=loss, **om)
 
     return train_step
+
+
+def _mean_over(mesh, axes, grads, scalars):
+    """(grads, loss, other metrics) averaged over the ranks that differ on
+    ``axes``: each gradient leaf all-reduced in f32, one leaf at a time,
+    and the scalars in one more all-reduce."""
+    leaves = PM.tree_leaves(grads)
+    n = torch.tensor(float(mesh_axis_size(mesh, axes)),
+                     device=leaves[0].device)
+    out = []
+    for g in leaves:
+        gf = g.float() if g.dtype != torch.float32 else g
+        all_reduce_axes(gf, mesh, axes).div_(n)
+        out.append(gf if gf is g else gf.to(g.dtype))
+    names = sorted(scalars)
+    vec = torch.stack([torch.as_tensor(scalars[k], device=n.device).float()
+                       for k in names])
+    all_reduce_axes(vec, mesh, axes).div_(n)
+    red = dict(zip(names, vec.unbind()))
+    return PM.tree_unflatten(grads, out), red.pop("loss"), red

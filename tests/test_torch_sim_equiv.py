@@ -45,7 +45,8 @@ COPIES = ["errors.py", "core/topology.py", "core/pinned_buffer.py",
           "configs/nemotron_4_15b.py", "configs/qwen2_72b.py",
           "configs/qwen2_vl_2b.py", "configs/whisper_medium.py",
           "configs/xlstm_1_3b.py", "serving/workflow.py",
-          "serving/executor.py", "distributed/fault.py"]
+          "serving/executor.py", "distributed/fault.py",
+          "launch/hlo_analysis.py"]
 
 
 @pytest.fixture(scope="module")
@@ -169,6 +170,11 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    # the mesh layer's modules, the twins of the reference's
+    assert {f"{m}.py" for m in ("distributed/mesh", "distributed/compression",
+                                "distributed/resharding", "launch/mesh",
+                                "launch/dryrun", "launch/hlo_analysis")} \
+        <= {f.relative_to(PORT).as_posix() for f in files[:-1]}
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]

@@ -42,8 +42,8 @@ def _one_thread():
 
 def _with_grads(update):
     """``adamw_update`` that also returns the gradients it was given."""
-    def wrapped(oc, params, grads, opt_state):
-        p, o, m = update(oc, params, grads, opt_state)
+    def wrapped(oc, params, grads, opt_state, *shardings):
+        p, o, m = update(oc, params, grads, opt_state, *shardings)
         return p, o, dict(m, grads=grads)
     return wrapped
 
@@ -100,14 +100,19 @@ def test_train_step_matches_reference(arch, smoke_mesh, monkeypatch):
 
 @pytest.mark.parametrize("batch", [1, 4, 6])
 def test_default_accum_matches_reference_on_one_device(batch, smoke_mesh):
-    """At world size 1 (the smoke mesh: one device) one batch row goes to
-    each microbatch in both packages."""
+    """At world size 1 (the smoke mesh: one device; in the port also no
+    mesh) one batch row goes to each microbatch in both packages."""
+    from types import SimpleNamespace
+
     from repro.configs.base import ShapeSpec as JS
 
     from repro_torch.configs.base import ShapeSpec
     assert smoke_mesh.size == 1
     jcfg = MP.jget_arch("minicpm-2b").reduced()
     want = JTS.default_accum(JS("t", 32, batch, "train"), smoke_mesh, jcfg)
-    assert TS.default_accum(ShapeSpec("t", 32, batch, "train"),
-                            MP.get_arch("minicpm-2b").reduced()) == want
+    cfg = MP.get_arch("minicpm-2b").reduced()
+    one = SimpleNamespace(shape=(1, 1), mesh_dim_names=("data", "model"))
+    for mesh in (one, None):
+        assert TS.default_accum(ShapeSpec("t", 32, batch, "train"), mesh,
+                                cfg) == want
     assert want == batch
