@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 It imports the port (``src/repro_torch``) only, builds the hand-written
-CUDA kernels from the checkout's sources, and runs fourteen phases:
+CUDA kernels from the checkout's sources, and runs fifteen phases:
 
 1. environment: torch / CUDA versions, the card's name and power limit,
    and ``synth_payload`` against numpy's own uint8 draw;
@@ -27,8 +27,8 @@ CUDA kernels from the checkout's sources, and runs fourteen phases:
    MiniCPM-2B's shapes and at odd ones (flash: not causal over Whisper's
    1500 frames, 4 queries over them, group 6 at Qwen2-VL-2B's heads;
    paged: many spans, a length on a span boundary, group 8 at D=128,
-   pages of 8; flash also at every shape phase 12 launches and at phase
-   13's training shape, derived from the models' configs), and their
+   pages of 8; flash also at every shape phase 12 launches and at phases
+   13's and 15's training shapes, derived from the models' configs), and their
    times beside their bound, their plain
    versions' and the library call's (flash and paged also at Qwen2-72B's
    heads, GQA at D=128, flash also at Whisper-medium's encoder and
@@ -100,11 +100,25 @@ CUDA kernels from the checkout's sources, and runs fourteen phases:
     bit-equal to the CPU's, ``compressed_psum_leaf`` through the NCCL
     group, and ``cross_pod_grad_sync`` over a MiniCPM-2B gradient tree
     on a (1, 1, 1) (pod, data, model) mesh timed beside its HBM bound;
-    (d) both resharding permutes on the 1x1 mesh, bytes equal.
+    (d) both resharding permutes on the 1x1 mesh, bytes equal;
+15. weight sharding on the card at world size 1, where the training
+    rules still name ``model`` and ``data``, so every sharded body runs
+    and every collective is called on a group of one: (a) DBRX-132B at
+    full width cut to 1 of its 40 layers (4.49 B parameters, bf16, f32
+    AdamW moments, WSD) trained 3 steps of 2 x 4096 tokens through
+    ``run_training`` on the 1x1 NCCL mesh (experts over ``model``, FSDP
+    ``embed`` over ``data``, heads and vocab over ``model``), its first
+    step held against the same step without a mesh (loss within 1e-6
+    relative, every parameter leaf within relnorm 1e-5), warm ms a step,
+    tokens/s, peak memory, then one step profiled in a process of its
+    own (idle share, the flash launches, the device time inside the
+    ``nccl:*`` ranges); (b) DBRX, Grok-1 and Jamba reduced, one accum-2
+    step each in f32 on the 1x1 mesh on the card against the CPU with
+    no mesh.
 
 The data plane (phases 4-6), the serving path (phase 9), the chaos run
 (10), the swap tier (11), each model of phase 12 and the training runs
-(13c, 14b) are the main paths:
+(13c, 14b, 15a) are the main paths:
 the launch counters are set to 0 just before each and read just after
 it; the reads that check landed bytes are kept out of the counts.
 Float32 matrix products stay in full f32 (TF32 off).  Any failed check
@@ -610,10 +624,25 @@ def train_flash_cases() -> list:
     return list(cases)
 
 
+def moe_flash_cases() -> list:
+    """The flash shapes of phase 15a's training, derived from its config
+    as ``loss_fn`` runs them (``train_flash_cases``' rule)."""
+    from repro_torch.models.blocks import block_pattern, kind_meta
+    cfg = moe_config()
+    cases = {}
+    for kind in block_pattern(cfg):
+        meta = kind_meta(cfg, kind)
+        if meta["mixer"] not in RECURRENT_MIXERS:
+            cases[(MOE_BATCH // MOE_ACCUM, cfg.n_heads, cfg.n_kv_heads,
+                   MOE_SEQ, MOE_SEQ, cfg.resolved_head_dim,
+                   meta["causal"], meta["window"], 0, 0)] = 1
+    return list(cases)
+
+
 def attention_cases() -> dict:
     """Both attention kernels against their plain versions at every case
-    (FLASH_CASES, ``model_flash_cases()`` and ``train_flash_cases()`` for
-    flash), f32 and bf16.  Returns the largest absolute difference per kernel and
+    (FLASH_CASES, ``model_flash_cases()``, ``train_flash_cases()`` and
+    ``moe_flash_cases()`` for flash), f32 and bf16.  Returns the largest absolute difference per kernel and
     dtype, and the paged kernel's largest row-relative one in bf16 under
     ("paged_attention", "bfloat16 row-relative")."""
     import torch
@@ -625,7 +654,8 @@ def attention_cases() -> dict:
     worst = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).removeprefix("torch.")
-        for case in FLASH_CASES + model_flash_cases() + train_flash_cases():
+        for case in (FLASH_CASES + model_flash_cases() + train_flash_cases()
+                     + moe_flash_cases()):
             B, Hq, Hkv, Lq, Lkv, D, causal, window, q_off, kv_off = case
             kw = dict(causal=causal, window=window, q_offset=q_off,
                       kv_offset=kv_off)
@@ -778,17 +808,20 @@ def paged_times(B, Hq, Hkv, D, page, NP, gen) -> dict:
 def attention_times() -> dict:
     """Device times in bf16 (CUDA graph replay, CUDA events) at
     MiniCPM-2B's prefill and decode shapes, at Qwen2-72B's heads and
-    (flash) at FLASH_MODEL_SHAPES and phase 13's training shape, beside
-    the bound, the plain version and the library call (SDPA for flash;
-    paged attention has no single PyTorch call)."""
+    (flash) at FLASH_MODEL_SHAPES and phases 13's and 15's training
+    shapes, beside the bound, the plain version and the library call
+    (SDPA for flash; paged attention has no single PyTorch call)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(CASE_SEED + 1)
     B, H, L, D = 8, 36, 1024, 64
     B_q, Hq_q, Hkv_q, D_q, page_q, NP_q = QWEN_PAGED
     (B_t, Hq_t, Hkv_t, L_t, _, D_t, c_t, _, _, _), = train_flash_cases()
+    (B_m, Hq_m, Hkv_m, L_m, _, D_m, c_m, _, _, _), = moe_flash_cases()
     res = {"flash_attention": flash_times(B, H, H, L, D, gen),
            f"flash_attention/{TRAIN_ARCH}-train": flash_times(
                B_t, Hq_t, Hkv_t, L_t, D_t, gen, causal=c_t),
+           f"flash_attention/{MOE_ARCH}-train": flash_times(
+               B_m, Hq_m, Hkv_m, L_m, D_m, gen, causal=c_m),
            "flash_attention/qwen2-72b": flash_times(*QWEN_SHAPE, gen),
            **{f"flash_attention/{name}": flash_times(
                B_m, Hq_m, Hkv_m, L_m, D_m, gen, causal=c)
@@ -1395,10 +1428,16 @@ def full_width_gradient(say) -> dict:
 
 def _correlated_ms(trace, device_events, annotation: str) -> float:
     """Device time of the kernels launched from inside the CPU ranges
-    named ``annotation`` (matched by the launch's correlation id)."""
-    ranges = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in trace
-              if e.get("cat") == "user_annotation"
-              and e["name"] == annotation]
+    named ``annotation``, or, for a name ending in ``:``, named with it
+    as their prefix (matched by the launch's correlation id)."""
+    if annotation.endswith(":"):      # the process group's, of any kind
+        ranges = [e for e in trace if e["name"].startswith(annotation)
+                  and e.get("cat") not in ("kernel", "gpu_memcpy",
+                                           "gpu_memset")]
+    else:
+        ranges = [e for e in trace if e.get("cat") == "user_annotation"
+                  and e["name"] == annotation]
+    ranges = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in ranges]
     ids = {e["args"]["correlation"] for e in trace
            if e.get("cat") in ("cuda_runtime", "cuda_driver")
            and "correlation" in e.get("args", {})
@@ -1421,16 +1460,18 @@ def _traced(module, name: str, label: str):
     return lambda: setattr(module, name, fn)
 
 
-def profile_train_step(state, oc, say, mesh=None) -> dict:
-    """One more train step of 13c's state (14b's, on its mesh) under
-    ``torch.profiler``, as ``launch/profile_serve.py`` profiles a
+def profile_train_step(state, oc, say, mesh=None, cell=None) -> dict:
+    """One more train step of 13c's state (14b's or 15a's, on its mesh)
+    under ``torch.profiler``, as ``launch/profile_serve.py`` profiles a
     prefill: host wall time, device busy time and idle share, the top
     kernels, and the device time in the flash forward against the plain
     attention backward (``attention_bwd_ref``, read by its launches'
-    correlation ids).  On a mesh also the collectives: each
-    ``all_reduce_axes`` and ``gather_full`` call of the step, the device
+    correlation ids).  ``cell`` is the run's (cfg, shape, accum), phase
+    13's by default.  On a mesh also the collectives: the train step's
+    ``all_reduce_axes`` and ``gather_full`` calls (ZeRO-1's) and the device
     time launched inside them, the process group's own profiler ranges
-    (``nccl:*``) and the device events NCCL names (``ncclDevKernel_*``)."""
+    (``nccl:*``) and the device time launched inside them, and the device
+    events NCCL names (``ncclDevKernel_*``)."""
     import os
     import tempfile
     import torch
@@ -1443,16 +1484,19 @@ def profile_train_step(state, oc, say, mesh=None) -> dict:
     from repro_torch.models import param as PM
     from repro_torch.training import train_step as TS
     from repro_torch.training.optimizer import zero1_shardings
-    cfg = get_arch(TRAIN_ARCH)
+    cfg, shape, accum = cell or (
+        get_arch(TRAIN_ARCH),
+        ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"), TRAIN_ACCUM)
+    zshd = None
     if mesh is None:
-        step = TS.build_train_step(cfg, M.build_ctx(cfg), oc, TRAIN_ACCUM)
+        step = TS.build_train_step(cfg, M.build_ctx(cfg), oc, accum)
     else:
-        shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
         ctx = M.build_ctx(cfg, shape, mesh)
-        zshd = zero1_shardings(M.model_specs(cfg), oc.state_dtype,
-                               MESH.make_opt_rules(cfg, shape, mesh,
-                                                   ctx.rules), mesh)
-        step = TS.build_train_step(cfg, ctx, oc, TRAIN_ACCUM, zshd)
+        if MESH.use_small_dense_dp(cfg, shape, mesh):
+            zshd = zero1_shardings(M.model_specs(cfg), oc.state_dtype,
+                                   MESH.make_opt_rules(cfg, shape, mesh,
+                                                       ctx.rules), mesh)
+        step = TS.build_train_step(cfg, ctx, oc, accum, zshd)
     batch = state.pipeline.next_batch()
     undo = [_traced(ops, "attention_bwd_ref", "attention_bwd_ref"),
             _traced(TS, "all_reduce_axes", "mesh:all_reduce"),
@@ -1478,48 +1522,53 @@ def profile_train_step(state, oc, say, mesh=None) -> dict:
             u()
         os.unlink(path)
     dev = [e for e in trace if e.get("cat") in DEVICE_CATS]
-    check(len(dev) > 0, "13c: the profiled train step holds no device event")
+    check(len(dev) > 0, f"{cfg.name}: the profiled train step holds no "
+          "device event")
     rep = _report("  profiled train step", wall, dev, 10)
     rep["flash_forward_ms"] = sum(e["dur"] for e in dev
                                   if "flash_bf16" in e["name"]) / 1e3
     rep["attention_bwd_ms"] = _correlated_ms(trace, dev, "attention_bwd_ref")
     check(rep["flash_forward_ms"] > 0 and rep["attention_bwd_ms"] > 0,
-          f"13c: no flash forward or attention backward in the trace: {rep}")
+          f"{cfg.name}: no flash forward or attention backward in the "
+          f"trace: {rep}")
     say(f"  flash forward {rep['flash_forward_ms']:.3f} ms, plain attention "
         f"backward {rep['attention_bwd_ms']:.3f} ms of {rep['busy_ms']:.3f} "
         f"ms device busy ({rep['attention_bwd_ms'] / rep['busy_ms']:.3f}); "
         f"idle share {rep['idle_share']:.3f}")
     if mesh is None:
         return rep
-    n_leaves = len(PM.tree_leaves(state.params))
-    n_sharded = sum(1 for sh in PM.tree_leaves(zshd)
-                    if MESH.spec_axes(sh.spec))
     calls = {k: sum(1 for e in trace if e.get("cat") == "user_annotation"
                     and e["name"] == f"mesh:{k}")
              for k in ("all_reduce", "all_gather")}
+    nccl = [e["name"] for e in trace if e["name"].startswith("nccl:")]
     rep["collectives"] = {
         "calls": calls,
         **{f"{k}_ms": _correlated_ms(trace, dev, f"mesh:{k}") for k in calls},
-        "nccl_ranges": sorted({e["name"] for e in trace
-                               if e["name"].startswith("nccl:")}),
-        "nccl_range_count": sum(1 for e in trace
-                                if e["name"].startswith("nccl:")),
+        "nccl_ranges": {n: nccl.count(n) for n in sorted(set(nccl))},
+        "nccl_range_count": len(nccl),
+        "nccl_range_ms": _correlated_ms(trace, dev, "nccl:"),
         "nccl_device_events": sorted({e["name"] for e in dev
                                       if "nccl" in e["name"].lower()}),
         "nccl_device_ms": sum(e["dur"] for e in dev
                               if "nccl" in e["name"].lower()) / 1e3}
     c = rep["collectives"]
-    # one all-reduce a gradient leaf and one for the loss; one gather a
-    # parameter leaf whose moments' spec names a mesh axis
-    check(calls == {"all_reduce": n_leaves + 1, "all_gather": n_sharded},
-          f"14b: collectives {calls}, not {n_leaves + 1} all-reduces and "
-          f"{n_sharded} all-gathers")
+    if zshd is not None:
+        # one all-reduce a gradient leaf and one for the loss; one gather
+        # a parameter leaf whose moments' spec names a mesh axis
+        n_leaves = len(PM.tree_leaves(state.params))
+        n_sharded = sum(1 for sh in PM.tree_leaves(zshd)
+                        if MESH.spec_axes(sh.spec))
+        check(calls == {"all_reduce": n_leaves + 1, "all_gather": n_sharded},
+              f"{cfg.name}: collectives {calls}, not {n_leaves + 1} "
+              f"all-reduces and {n_sharded} all-gathers")
     check(c["nccl_range_count"] > 0 or c["nccl_device_events"],
-          f"14b: no NCCL range or device event in the profiled step: {c}")
-    say(f"  collectives in the profiled step: {calls}; device time launched "
+          f"{cfg.name}: no NCCL range or device event in the profiled "
+          f"step: {c}")
+    say(f"  the train step's collectives: {calls}; device time launched "
         f"inside them: all-reduce {c['all_reduce_ms']:.3f} ms, all-gather "
         f"{c['all_gather_ms']:.3f} ms; process-group ranges "
-        f"{c['nccl_ranges']} x {c['nccl_range_count']}; NCCL device events "
+        f"{c['nccl_ranges']}, {c['nccl_range_ms']:.3f} ms of device time "
+        f"launched inside them; NCCL device events "
         f"{c['nccl_device_events']} ({c['nccl_device_ms']:.3f} ms)")
     return rep
 
@@ -1857,15 +1906,15 @@ def mesh_profile_child() -> None:
     print(json.dumps(rep))
 
 
-def mesh_profile(say) -> dict:
-    """Run ``mesh_profile_child`` in a fresh interpreter; its report."""
+def mesh_profile(say, child: str = "mesh_profile_child") -> dict:
+    """Run ``child`` (``mesh_profile_child`` or ``moe_profile_child``) in a
+    fresh interpreter; its report."""
     res = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; "
-         "chip_smoke.mesh_profile_child()"], cwd=ROOT, capture_output=True,
-        text=True, timeout=600)
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.{child}()"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
     for line in res.stdout.splitlines()[:-1]:
         say(line)
-    check(res.returncode == 0, f"14b profile: exit {res.returncode}\n"
+    check(res.returncode == 0, f"{child}: exit {res.returncode}\n"
           f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
     return json.loads(res.stdout.splitlines()[-1])
 
@@ -1956,6 +2005,234 @@ def mesh_resharding(say) -> dict:
     say(f"  multipath_permute and single_path_permute of {PERMUTE_SHAPE} "
         f"bf16 on the 1x1 mesh: bytes equal to the input")
     return {"shape": PERMUTE_SHAPE, "equal": True}
+
+
+# ------------------------------------------------------------ phase 15 ---
+#: phase 15a: DBRX-132B at full width (configs/dbrx_132b.py,
+#: hf:databricks/dbrx-base: d_model 6144, 48 q and 8 kv heads of 128, 16
+#: experts top-4 of d_ff 10752, padded vocab 100352) cut to 1 of its 40
+#: layers, 4.49 B parameters: 2 x 4096 tokens a step in one microbatch,
+#: 3 steps, WSD, f32 AdamW moments (the state is ~54 GB)
+MOE_ARCH, MOE_LAYERS = "dbrx-132b", 1
+MOE_SEQ, MOE_BATCH, MOE_ACCUM, MOE_STEPS = 4096, 2, 1, 3
+MOE_STATE = "f32"
+#: phase 15b: the MoE archs reduced, one step each on the 1x1 mesh,
+#: card against CPU (13a's shape, microbatches and limits)
+MOE_REDUCED = ("dbrx-132b", "grok-1-314b", "jamba-1.5-large-398b")
+
+
+def moe_config():
+    return full_config(MOE_ARCH, MOE_LAYERS)
+
+
+def moe_cell():
+    """(cfg, shape, OptConfig) of phase 15a."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.training.optimizer import OptConfig
+    cfg = moe_config()
+    oc = OptConfig(schedule=cfg.lr_schedule, total_steps=MOE_STEPS,
+                   warmup_steps=max(MOE_STEPS // 10, 1),
+                   state_dtype=MOE_STATE)
+    return cfg, ShapeSpec("train", MOE_SEQ, MOE_BATCH, "train"), oc
+
+
+def active_params(cfg) -> int:
+    """The parameters a token's forward multiplies by: every leaf but the
+    experts', and of those ``top_k / n_experts``; the embedding table
+    counts where it is the head (tied)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    n = 0
+    for path, p in PM.tree_leaves_with_paths(M.model_specs(cfg)):
+        size = int(np.prod(p.shape))
+        if "/moe/w" in path:
+            size = size * cfg.top_k // cfg.n_experts
+        elif path == "embed/table" and not cfg.tie_embeddings:
+            size = 0
+        n += size
+    return n
+
+
+def moe_mesh_training(say) -> dict:
+    """Phase 15a: ``moe_cell()`` through ``run_training``, first for one
+    step without a mesh (its loss and a host copy of the parameters
+    after it), then MOE_STEPS steps on the 1x1 NCCL mesh, where the MoE
+    training rules name ``model`` (experts, heads, kv heads, vocab) and
+    ``data`` (FSDP ``embed``): every sharded body and collective runs,
+    on groups of one.  The mesh's first step is held against the
+    record, the later steps timed warm."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.training.train_loop import run_training
+    cfg, shape, oc = moe_cell()
+    n_params = PM.count_params(M.model_specs(cfg))
+    n_active = active_params(cfg)
+    tokens = MOE_BATCH * MOE_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, _ = run_training(cfg, shape, steps=1, oc=oc,
+                                    accum=MOE_ACCUM, log_every=0)
+    plain = {"loss": losses[0], "peak_gb":
+             torch.cuda.max_memory_allocated() / 1e9,
+             "host": [t.detach().to("cpu", copy=True)
+                      for t in PM.tree_leaves(state.params)]}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_smoke_mesh("cuda")
+    starts, ends, mine = [], [], {}
+
+    def log_fn(msg):
+        ends.append(time.perf_counter())
+        say(f"    {msg}")
+
+    torch.cuda.reset_peak_memory_stats()
+    FK.flash_attention.launches = 0
+    with first_step_record(mine) as hook:
+        state, losses, stats = run_training(
+            cfg, shape, mesh, steps=MOE_STEPS, oc=oc, accum=MOE_ACCUM,
+            log_every=1, log_fn=log_fn,
+            pipeline_cls=timed_pipeline(starts, hook))
+    launches = FK.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_attn = attention_layers(cfg)
+    want = n_attn * 2 * MOE_ACCUM * MOE_STEPS
+    check(launches == want, f"15a: {launches} flash launches, not {n_attn} "
+          f"layers x 2 x {MOE_ACCUM} microbatches x {MOE_STEPS} steps")
+    check(len(losses) == MOE_STEPS and all(np.isfinite(losses)),
+          f"15a: losses {losses}")
+    check(int(state.opt_state["step"]) == MOE_STEPS and stats.restarts == 0,
+          f"15a: optimizer step {int(state.opt_state['step'])}")
+    loss_rel = abs(losses[0] - plain["loss"]) / abs(plain["loss"])
+    rel = {path: _relnorm(a.to("cuda"), b.to("cuda")) for (path, _), a, b
+           in zip(PM.tree_leaves_with_paths(state.params), mine["host"],
+                  plain["host"])}
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    steps = step_times(starts, ends, n_active, tokens, say)
+    say(f"  ({n_active / 1e9:.3f} B of the {n_params / 1e9:.3f} B "
+        f"parameters active a token: the experts' top-{cfg.top_k} of "
+        f"{cfg.n_experts}); loss {losses[0]!r} against {plain['loss']!r} "
+        f"without a mesh (relative {loss_rel:.3g}); worst leaf relnorm "
+        f"{worst[1]:.3g} ({worst[0]}); losses {losses}; peak {peak:.2f} GB "
+        f"({plain['peak_gb']:.2f} GB without a mesh), {MOE_STATE} moments; "
+        f"{launches} flash launches ({n_attn} layer x 2 x {MOE_ACCUM} x "
+        f"{MOE_STEPS} steps)")
+    check(loss_rel <= MESH_LOSS_REL,
+          f"15a: loss {losses[0]} against {plain['loss']}")
+    check(worst[1] <= MESH_LEAF_RELNORM, f"15a: leaf relnorm {worst}")
+    del state, mine, plain
+    return {"arch": MOE_ARCH, "layers": MOE_LAYERS, "params": n_params,
+            "active_params": n_active, "seq": MOE_SEQ, "batch": MOE_BATCH,
+            "accum": MOE_ACCUM, "state_dtype": MOE_STATE, "losses": losses,
+            "loss_rel": loss_rel, "worst_leaf": worst[0],
+            "worst_leaf_relnorm": worst[1], "steps": steps, "peak_gb": peak,
+            "flash_launches": launches,
+            "flash_launches_a_step": launches // MOE_STEPS}
+
+
+def moe_profile_child() -> None:
+    """Phase 15a's profiled step, in a process of its own (as
+    ``mesh_profile_child``): a warm-up step on the smoke mesh, then one
+    under the profiler; prints the report as JSON on its last line."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.training.train_loop import run_training
+    FK.load_library()
+    cfg, shape, oc = moe_cell()
+    mesh = make_smoke_mesh("cuda")
+    state, _, _ = run_training(cfg, shape, mesh, steps=1, oc=oc,
+                               accum=MOE_ACCUM, log_every=0)
+    say = lambda *a: print(*a, flush=True)          # noqa: E731
+    FK.flash_attention.launches = 0
+    rep = profile_train_step(state, oc, say, mesh, (cfg, shape, MOE_ACCUM))
+    rep["flash_launches"] = FK.flash_attention.launches
+    dist.destroy_process_group()
+    print(json.dumps(rep))
+
+
+def moe_reduced_on_mesh(say) -> float:
+    """Phase 15b: one ``build_train_step`` step with TRAIN_ACCUM
+    microbatches of each MOE_REDUCED arch reduced, in f32, on the card
+    through the 1x1 NCCL mesh (the training rules, every sharded body)
+    and on the CPU with no mesh, from the same weights and batch: 13a's
+    limits on the loss and each leaf's gradient, and 13a's flash
+    launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.mesh import make_opt_rules
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import io
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import build_train_step
+    mesh = make_smoke_mesh("cuda")
+    seq, rows = REDUCED_TRAIN_SHAPE
+    shape = ShapeSpec("t", seq, rows, "train")
+    worst = 0.0
+    for arch in MOE_REDUCED:
+        cfg = dataclasses.replace(get_arch(arch).reduced(), cache_dtype="f32")
+        pspecs = M.model_specs(cfg)
+        host = PM.tree_map(lambda t: t.float(),
+                           M.init_params(cfg, CASE_SEED, "cpu"))
+        batch = {k: v.float() if v.is_floating_point() else v for k, v in
+                 io.synthetic_batch(cfg, shape, CASE_SEED, "cpu").items()}
+        runs = {}
+        for device, m in (("cpu", None), ("cuda", mesh)):
+            params = PM.trainable(PM.tree_map(
+                lambda t: t.to(device, copy=True), host))
+            if m is None:
+                ctx, opt = M.build_ctx(cfg), init_opt_state(pspecs, "f32",
+                                                            device)
+            else:
+                ctx = M.build_ctx(cfg, shape, m)
+                opt = init_opt_state(pspecs, "f32", device, rules=(
+                    make_opt_rules(cfg, shape, m, ctx.rules)), mesh=m)
+            step = build_train_step(cfg, ctx, OptConfig(
+                schedule=cfg.lr_schedule), TRAIN_ACCUM)
+            grads = []
+            before = FK.flash_attention.launches
+            with captured_grads(grads):
+                _, opt, met = step(params, opt, {k: v.to(device)
+                                                 for k, v in batch.items()})
+            torch.cuda.synchronize()
+            runs[device] = (met["loss"].item(), grads[0], int(opt["step"]),
+                            FK.flash_attention.launches - before)
+        named = sorted({a for n in ("heads", "experts", "expert_mlp",
+                                    "state_inner", "embed")
+                        for a in ctx.rules[n]})
+        loss_err = abs(runs["cuda"][0] - runs["cpu"][0])
+        leaf, grad_err = max(_leaf_relnorms(runs["cuda"][1],
+                                            runs["cpu"][1]).items(),
+                             key=lambda kv: kv[1])
+        want = TRAIN_ACCUM * 2 * attention_layers(cfg)
+        check(loss_err <= REDUCED_TOL, f"15b {arch}: loss differs by "
+              f"{loss_err} (limit {REDUCED_TOL})")
+        check(grad_err <= REDUCED_TOL, f"15b {arch}: gradient of {leaf} "
+              f"differs by relnorm {grad_err} (limit {REDUCED_TOL})")
+        check(runs["cuda"][2] == runs["cpu"][2] == 1 and named == [
+            "data", "model"], f"15b {arch}: optimizer step or rules "
+              f"{named}")
+        check(runs["cpu"][3] == 0 and runs["cuda"][3] == want,
+              f"15b {arch}: flash launches {runs['cpu'][3]} on the CPU, "
+              f"{runs['cuda'][3]} on the card, not {want}")
+        worst = max(worst, loss_err, grad_err)
+        say(f"  {arch} reduced f32 on the 1x1 mesh (rules naming {named}), "
+            f"{rows} x {seq} tokens in {TRAIN_ACCUM} microbatches: loss "
+            f"{runs['cuda'][0]:.6f}, card against CPU {loss_err:.3g}; "
+            f"gradient relnorm worst {grad_err:.3g} ({leaf}; limit "
+            f"{REDUCED_TOL:g}); {runs['cuda'][3]} flash launches")
+    return worst
 
 
 # ------------------------------------------------------- phases 10-11 ---
@@ -2740,6 +3017,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     say("[14d] resharding permutes on the 1x1 mesh")
     mesh_perm = mesh_resharding(say)
+    say(f"  flash_attention launches by phase: {flash_by_phase}, in all "
+        f"{launches['flash_attention']}; {time.perf_counter() - t0:.2f} s")
+
+    # ---- the weight-sharding path, counted from 15a's start to its end ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    say(f"[15a] {MOE_ARCH} at full width, {MOE_LAYERS} layer, through "
+        f"run_training on the 1x1 NCCL mesh with the MoE training rules: "
+        f"{MOE_STEPS} steps of {MOE_BATCH} x {MOE_SEQ} tokens, bf16, "
+        f"{MOE_STATE} AdamW moments, WSD")
+    moe_train = moe_mesh_training(say)
+    flash_by_phase["15"] = moe_train["flash_launches"]
+    launches["flash_attention"] += moe_train["flash_launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train["profile"] = mesh_profile(say, "moe_profile_child")
+    say(f"  {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    say(f"[15b] {', '.join(MOE_REDUCED)} reduced, f32, one step on the 1x1 "
+        f"mesh, card against CPU")
+    moe_reduced = moe_reduced_on_mesh(say)
     dist.destroy_process_group()
     say(f"  flash_attention launches by phase: {flash_by_phase}, in all "
         f"{launches['flash_attention']}; {time.perf_counter() - t0:.2f} s")
@@ -2797,6 +3096,8 @@ def main() -> int:
     say(json.dumps({"mesh": {"backend": backend, "training": mesh_train,
                              "compression": mesh_comp,
                              "resharding": mesh_perm}}))
+    say(json.dumps({"weight_sharding": {"training": moe_train,
+                                        "reduced_worst_err": moe_reduced}}))
     say(json.dumps({"chaos": {k: chaos[k] for k in (
         "faults", "fired", "retries", "failures", "recovered_stages",
         "replans", "checked", "held")}, "swap": swap}))

@@ -23,6 +23,19 @@ belongs to that rank; ranks on axes the spec does not name hold copies).
 Residency, ZeRO-1 and checkpoint restore all read this one mapping, and
 ``all_reduce_axes`` / ``gather_full`` are the two collectives that
 stand in for what XLA inserts there.
+
+Inside the model, where GSPMD places the collectives of a sharded weight,
+the port calls them by hand, as autograd functions over a tuple of mesh
+axes: Megatron's pair ``copy_to`` (the identity forward, an all-reduce
+backward) and ``reduce_from`` (an all-reduce forward, the identity
+backward), FSDP's ``gather_from`` (an all-gather of one dim forward, a
+reduce-scatter backward), and ``axis_index``.  A body passes the axes
+its weights' specs name, so an axis that ``spec_for`` dropped gets no
+collective, and an axis of one member still gets its call.  The
+convention they keep: on every rank, autograd gives each tensor the
+gradient of the rank's own loss, whole over the model axes and partial
+over the data axes; the train step sums over the data axes what
+``gather_from`` has not already reduce-scattered.
 """
 from __future__ import annotations
 
@@ -327,3 +340,119 @@ def gather_full(local: torch.Tensor, shape: tuple[int, ...], spec: Spec,
         cur = torch.cat([parts[i] for i in order], dim=dims[a])
     out.copy_(cur)
     return out
+
+
+# ------------------------------------------- collectives under autograd ---
+
+def _chunk_key(mesh, axes: tuple[str, ...], rank: int) -> int:
+    """The index of ``rank``'s chunk of a dim split over ``axes`` (major
+    first), as ``local_slice`` numbers them."""
+    sizes = axis_sizes(mesh)
+    at = dict(zip(mesh.mesh_dim_names, coordinate(mesh, rank)))
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + at[a]
+    return idx
+
+
+def _groups(mesh, axes: tuple[str, ...]):
+    """``_steps(mesh, axes)`` as (group, ranks in group order, each rank's
+    chunk index along the step's axes), minor axis first."""
+    out = []
+    for a in _steps(mesh, axes):
+        if a is None:
+            ranks = list(range(dist.get_world_size()))
+            out.append((None, ranks, [_chunk_key(mesh, axes, r)
+                                      for r in ranks]))
+        else:
+            g = mesh.get_group(a)
+            ranks = dist.get_process_group_ranks(g)
+            out.append((g, ranks, [_chunk_key(mesh, (a,), r)
+                                   for r in ranks]))
+    return out
+
+
+def gather_dim(t: torch.Tensor, mesh, axes: tuple[str, ...],
+               dim: int) -> torch.Tensor:
+    """The tensor whose chunks along ``dim``, split over ``axes`` in
+    ``local_slice``'s order, the ranks hold (``t`` is this rank's)."""
+    cur = t.contiguous()
+    for g, ranks, keys in _groups(mesh, axes):
+        parts = [torch.empty_like(cur) for _ in ranks]
+        dist.all_gather(parts, cur, group=g)
+        order = sorted(range(len(ranks)), key=keys.__getitem__)
+        cur = parts[0] if len(parts) == 1 else torch.cat(
+            [parts[i] for i in order], dim=dim)
+    return cur
+
+
+def reduce_scatter_dim(t: torch.Tensor, mesh, axes: tuple[str, ...],
+                       dim: int) -> torch.Tensor:
+    """``t`` summed over the ranks that differ on ``axes``, and this rank's
+    chunk of the sum along ``dim`` (the transpose of ``gather_dim``)."""
+    cur = t
+    for g, ranks, keys in reversed(_groups(mesh, axes)):
+        chunks = cur.chunk(max(keys) + 1, dim=dim)
+        out = torch.empty_like(chunks[0], memory_format=torch.contiguous_format)
+        dist.reduce_scatter(out, [chunks[k].contiguous() for k in keys],
+                            group=g)
+        cur = out
+    return cur
+
+
+def axis_index(mesh, axes: tuple[str, ...]) -> int:
+    """This rank's index over ``axes`` (major first): the chunk of a dim
+    split over them that it holds (the reference's ``lax.axis_index``)."""
+    return _chunk_key(mesh, axes, dist.get_rank()) if axes else 0
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_axes(g.clone(), ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce_axes(x.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return gather_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_dim(g, ctx.mesh, ctx.axes, ctx.dim), None,
+                None, None)
+
+
+def copy_to(x: torch.Tensor, mesh, axes: tuple[str, ...]) -> torch.Tensor:
+    """``x``, whose gradient is summed over ``axes``: a tensor the ranks of
+    a model group hold alike, entering work they split among them."""
+    return _CopyTo.apply(x, mesh, axes) if axes else x
+
+
+def reduce_from(x: torch.Tensor, mesh, axes: tuple[str, ...]) -> torch.Tensor:
+    """The sum over ``axes`` of the ranks' partial ``x``; its gradient
+    passes through to each rank's part."""
+    return _ReduceFrom.apply(x, mesh, axes) if axes else x
+
+
+def gather_from(x: torch.Tensor, mesh, axes: tuple[str, ...],
+                dim: int) -> torch.Tensor:
+    """``x`` whole along ``dim`` over ``axes`` (an all-gather); its
+    gradient is reduce-scattered back to the rank's slice."""
+    return _GatherFrom.apply(x, mesh, axes, dim) if axes else x

@@ -2,10 +2,16 @@
     python -m repro_torch.launch.train --arch <id> [options]
 
 Trains through ``training.train_loop.run_training`` on a device mesh:
-the synthetic data pipeline, the train step (``loss_fn``'s gradient,
-data-parallel over the mesh, AdamW with the architecture's schedule and
-ZeRO-1 moments), async checkpoints and fault recovery.  ``--smoke``
-takes the reduced config (same family, tiny dims) on
+the synthetic data pipeline, the train step (``loss_fn``'s gradient
+under the cell's sharding rules, AdamW with the architecture's
+schedule), async checkpoints and fault recovery.  A small dense model
+whose batch fills the mesh trains data-parallel with whole weights and
+ZeRO-1 moments; every other cell (MoE, large dense, a batch that does
+not fill the mesh) shards its weights: attention heads, the MLP, the
+vocab, experts and Mamba's d_inner over ``model``, FSDP over the data
+axes, each rank holding its slices and their moments.  xLSTM outside
+data parallelism raises (its ``head_v`` has no sharded body yet).
+``--smoke`` takes the reduced config (same family, tiny dims) on
 ``make_smoke_mesh``: 1x1 in one process, or the ``--mesh`` shape under
 ``torchrun``.  Without ``--smoke`` it runs on the production mesh
 (``--multi-pod`` for 2x16x16) under ``torchrun`` with 256 or 512
@@ -18,6 +24,9 @@ Examples:
       --smoke --device cpu
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 4 -m repro_torch.launch.train --arch minicpm-2b \\
+      --smoke --device cpu --mesh 2x2
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --arch dbrx-132b \\
       --smoke --device cpu --mesh 2x2
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-72b \\
       --smoke --steps 20 --inject-failure 8 --ckpt-dir /tmp/ckpt \\
@@ -56,7 +65,9 @@ def main(argv=None):
                     help="simulate a host failure at this step (recovery demo)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--mesh", default="1x1",
-                    help="--smoke's data x model mesh (under torchrun)")
+                    help="--smoke's data x model mesh (under torchrun); "
+                    "weights shard over it by the arch's rules (TP, FSDP, "
+                    "experts) unless a small dense batch fills it")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)

@@ -11,6 +11,14 @@ M-RoPE, with or without QKV bias, the encoder's non-causal ``enc_attn``
 and ``dec_attn`` with cross-attention over the encoder output, which no
 architecture's pattern names, as in the JAX package), Mamba, mLSTM and
 sLSTM, each with a dense, MoE or no FFN.
+
+On a mesh the attention is tensor-parallel over the axes its q heads
+split on (``head_split``): ``copy_to`` on its input, the rank's heads
+through the flash kernel, the row-parallel ``wo`` and ``reduce_from``;
+where the kv heads stay whole while the q heads split (GQA heads that
+do not divide the axes), each rank cuts the kv weights to the heads
+its q heads read, ``h // (H / KV)``, and sums their gradient over the
+axes.  FSDP's data axes are gathered first (``ModelCtx.gathered``).
 """
 from __future__ import annotations
 
@@ -21,7 +29,9 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig, _pattern_period
-from repro_torch.distributed.mesh import Rules, constrain
+from repro_torch.distributed.mesh import (
+    Rules, axis_index, constrain, copy_to, entry_axes, gather_from,
+    mesh_axis_size, reduce_from, spec_for)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
@@ -35,7 +45,13 @@ class ModelCtx:
     """The JAX context's fields.  ``mesh`` is a ``DeviceMesh`` or None
     (one device, no process group); ``cons`` is the reference's sharding
     constraint, which on a rank's local tensor is the identity
-    (``distributed/mesh.py::constrain``)."""
+    (``distributed/mesh.py::constrain``).
+
+    On a mesh, a weight in a block is the rank's slice under its spec:
+    ``spec`` gives it from the weight's ``PSpec`` (global shape and
+    logical axes), ``axes`` the mesh axes of one of its dims, and
+    ``gathered`` makes it whole over the data axes (FSDP), leaving the
+    model axes split."""
     cfg: ArchConfig
     rules: Rules | None = None
     mesh: Any = None
@@ -47,6 +63,28 @@ class ModelCtx:
         if self.mesh is None:
             return x
         return constrain(x, logical, self.rules, self.mesh)
+
+    def spec(self, ps: PSpec) -> tuple:
+        if self.mesh is None:
+            return (None,) * len(ps.shape)
+        return spec_for(ps.shape, ps.logical, self.rules, self.mesh)
+
+    def axes(self, ps: PSpec, dim: int) -> tuple[str, ...]:
+        return entry_axes(self.spec(ps)[dim])
+
+    def gathered(self, w, ps: PSpec):
+        """``w`` whole over the data axes of every dim of its spec."""
+        for dim, part in enumerate(self.spec(ps)):
+            ax = entry_axes(part)
+            if ax and set(ax) <= set(self.data_axes):
+                w = gather_from(w, self.mesh, ax, dim)
+            elif set(ax) & set(self.data_axes):
+                raise NotImplementedError(f"{ps.logical}: dim {dim} splits "
+                                          f"over data and model axes {ax}")
+        return w
+
+    def gathered_tree(self, p: dict, specs: dict) -> dict:
+        return {k: self.gathered(v, specs[k]) for k, v in p.items()}
 
 
 # ------------------------------------------------------------ patterns -----
@@ -257,6 +295,49 @@ def _proj_qkv(cfg, p, x, prefix=""):
     return q, k, v
 
 
+@dataclass(frozen=True)
+class HeadSplit:
+    """How one attention's heads split over the model axes: ``axes``
+    those of the q heads (empty: attention replicated), and, where the kv
+    heads are replicated while the q heads split (GQA heads that do not
+    divide the axes), ``kv`` the kv heads this rank's q heads read,
+    ``h // (H / KV)``, as a range or one head a q head."""
+    axes: tuple[str, ...] = ()
+    kv: tuple[int, ...] | None = None
+
+
+def head_split(cfg, ctx: ModelCtx, specs: dict, prefix="") -> HeadSplit:
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    h_axes = ctx.axes(specs[f"{prefix}wq"], 1)
+    if not h_axes or ctx.axes(specs[f"{prefix}wk"], 1) == h_axes:
+        return HeadSplit(h_axes)
+    n_loc = H // mesh_axis_size(ctx.mesh, h_axes)
+    first = axis_index(ctx.mesh, h_axes) * n_loc
+    reads = [(first + i) // (H // KV) for i in range(n_loc)]
+    uniq = sorted(set(reads))
+    if n_loc % len(uniq) == 0 and reads == [
+            u for u in uniq for _ in range(n_loc // len(uniq))]:
+        return HeadSplit(h_axes, tuple(uniq))
+    return HeadSplit(h_axes, tuple(reads))
+
+
+def tp_weights(ctx: ModelCtx, ap: dict, specs: dict, split: HeadSplit,
+               prefix=""):
+    """One attention's weights for this rank: whole over the data axes;
+    under a ``HeadSplit`` with ``kv``, the replicated kv weights cut to
+    the heads the rank reads, their gradient summed over the heads'
+    axes (each rank's covers only its heads)."""
+    w = ctx.gathered_tree(ap, specs)
+    if split.kv is not None:
+        idx = list(split.kv)
+        for n in (f"{prefix}wk", f"{prefix}wv"):
+            w[n] = copy_to(w[n], ctx.mesh, split.axes)[:, idx]
+        for n in ("bk", "bv"):
+            if n in w and not prefix:
+                w[n] = copy_to(w[n], ctx.mesh, split.axes)[idx]
+    return w
+
+
 def _rope(cfg, meta, q, k, positions):
     if cfg.rope == "rope":
         q = attn_mod.apply_rope(q, positions, meta["theta"])
@@ -278,8 +359,10 @@ def _mrope_at(cfg, idx):
 def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos, enc_out):
     B, Lq, D = x.shape
     h = _norm(cfg, x, p["ln1"])
-    ap = p["attn"]
-    q, k, v = _proj_qkv(cfg, ap, h)
+    specs = attn_specs(cfg)
+    split = head_split(cfg, ctx, specs)
+    ap = tp_weights(ctx, p["attn"], specs, split)
+    q, k, v = _proj_qkv(cfg, ap, copy_to(h, ctx.mesh, split.axes))
     q = ctx.cons(q, ("batch", "heads", "seq", None))
     new_cache = cache
 
@@ -319,28 +402,33 @@ def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos, enc_out):
             out = attn_mod.decode_attention(q, ck, cv, pos)
         new_cache = dict(cache, k=ck, v=cv)
 
+    # the heads' partial sums of the row-parallel output projection
     y = torch.einsum("bhlk,hkd->bld", out, ap["wo"])
-    x = x + y
+    x = x + reduce_from(y, ctx.mesh, split.axes)
 
     if meta["cross"]:
         h = _norm(cfg, x, p["ln_x"])
-        xp = p["xattn"]
-        q = torch.einsum("bld,dhk->bhlk", h, xp["cwq"])
+        xspecs = attn_specs(cfg, cross=True)
+        xsplit = head_split(cfg, ctx, xspecs, "c")
+        xp = tp_weights(ctx, p["xattn"], xspecs, xsplit, "c")
+        q = torch.einsum("bld,dhk->bhlk", copy_to(h, ctx.mesh, xsplit.axes),
+                         xp["cwq"])
         if mode == "decode":
             # every encoder position is visible
             S_enc = cache["ck"].shape[2]
             out = attn_mod.decode_attention(q, cache["ck"], cache["cv"],
                                             S_enc - 1)
         else:
-            ck = torch.einsum("bld,dhk->bhlk", enc_out, xp["cwk"])
-            cv = torch.einsum("bld,dhk->bhlk", enc_out, xp["cwv"])
+            enc = copy_to(enc_out, ctx.mesh, xsplit.axes)
+            ck = torch.einsum("bld,dhk->bhlk", enc, xp["cwk"])
+            cv = torch.einsum("bld,dhk->bhlk", enc, xp["cwv"])
             if mode == "prefill":
                 new_cache = dict(new_cache,
                                  ck=ck.to(cfg.cache_jdtype).contiguous(),
                                  cv=cv.to(cfg.cache_jdtype).contiguous())
             out = attn_mod.blockwise_attention(q, ck, cv, causal=False)
         y = torch.einsum("bhlk,hkd->bld", out, xp["cwo"])
-        x = x + y
+        x = x + reduce_from(y, ctx.mesh, xsplit.axes)
     return x, new_cache
 
 
@@ -363,7 +451,8 @@ def apply_block(cfg, ctx: ModelCtx, kind: str, p, x, *, mode: str,
     if mixer in _RECURRENT:
         h = _norm(cfg, x, p["ln1"])
         state = cache if mode == "decode" else None
-        y, st = _RECURRENT[mixer](h, p[mixer], cfg, state=state)
+        kw = {"ctx": ctx} if mixer == "mamba" else {}
+        y, st = _RECURRENT[mixer](h, p[mixer], cfg, state=state, **kw)
         x = x + y
         new_cache = st if mode in ("prefill", "decode") else {}
     else:
@@ -372,10 +461,12 @@ def apply_block(cfg, ctx: ModelCtx, kind: str, p, x, *, mode: str,
 
     if meta["ffn"] == "dense":
         h = _norm(cfg, x, p["ln2"])
-        x = x + L.mlp(h, p["mlp"], cfg.mlp_type)
+        x = x + L.mlp(h, p["mlp"], cfg.mlp_type, ctx)
     elif meta["ffn"] == "moe":
         h = _norm(cfg, x, p["ln2"])
-        y, aux_moe = moe_mod.moe_block(h, p["moe"], cfg)
+        y, aux_moe = moe_mod.moe_block(
+            h, p["moe"], cfg, ctx.mesh, rules=ctx.rules,
+            data_axes=ctx.data_axes, batch_sharded=ctx.batch_sharded)
         x = x + y
         aux = aux + aux_moe
     x = ctx.cons(x, ("batch", "seq", "act_embed"))

@@ -1,6 +1,13 @@
 """Norms, MLP variants, embeddings, logits, PyTorch port of
 ``src/repro/models/layers.py``: same parameter specs, same math, same
-dtypes at every step (f32 norms, f32 logits)."""
+dtypes at every step (f32 norms, f32 logits).
+
+Given a model context on a mesh (``blocks.ModelCtx``), the MLP, the
+embedding and the logits take each weight as the rank's slice: the MLP
+column-parallel in, row-parallel out over the ``mlp`` axes; the
+embedding vocab-parallel (each rank looks up the ids in its rows); the
+logits the rank's vocab columns only (``model.loss_fn`` reduces them).
+FSDP's data axes are gathered first (``ModelCtx.gathered``)."""
 from __future__ import annotations
 
 import math
@@ -8,6 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh import (
+    axis_index, copy_to, mesh_axis_size, reduce_from)
 from repro_torch.models.param import PSpec
 
 
@@ -56,7 +65,14 @@ def mlp_specs(d_model: int, d_ff: int, mlp_type: str):
     raise ValueError(mlp_type)
 
 
-def mlp(x, p, mlp_type: str):
+def mlp(x, p, mlp_type: str, ctx=None):
+    axes, mesh = (), None
+    if ctx is not None and ctx.mesh is not None:
+        mesh = ctx.mesh
+        specs = mlp_specs(ctx.cfg.d_model, ctx.cfg.d_ff, mlp_type)
+        p = ctx.gathered_tree(p, specs)
+        axes = ctx.axes(specs["wo"], 0)
+        x = copy_to(x, mesh, axes)
     if mlp_type == "gated_silu":
         h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
     elif mlp_type == "squared_relu":
@@ -66,7 +82,7 @@ def mlp(x, p, mlp_type: str):
         h = F.gelu(x @ p["wi"], approximate="tanh")
     else:
         raise ValueError(mlp_type)
-    return h @ p["wo"]
+    return reduce_from(h @ p["wo"], mesh, axes)
 
 
 # -------------------------------------------------- embeddings / logits ----
@@ -78,22 +94,63 @@ def embedding_specs(vocab: int, d_model: int, tie: bool):
     return specs
 
 
-def embed_lookup(ids, p, scale_by_dim: bool = False):
-    x = p["table"][ids]
+def vocab_split(ctx):
+    """(the model axes the vocab splits over, this rank's first row) of
+    the embedding (or the head: same logical axes, same size); ((), 0)
+    without a mesh or a split."""
+    if ctx is None or ctx.mesh is None:
+        return (), 0
+    cfg = ctx.cfg
+    table = embedding_specs(cfg.padded_vocab, cfg.d_model,
+                            cfg.tie_embeddings)["table"]
+    axes = ctx.axes(table, 0)
+    if not axes:
+        return (), 0
+    n_loc = cfg.padded_vocab // mesh_axis_size(ctx.mesh, axes)
+    return axes, axis_index(ctx.mesh, axes) * n_loc
+
+
+def _embed_weight(p, name: str, ctx):
+    """``p[name]`` whole over the data axes."""
+    if ctx is None or ctx.mesh is None:
+        return p[name]
+    cfg = ctx.cfg
+    return ctx.gathered(p[name], embedding_specs(
+        cfg.padded_vocab, cfg.d_model, cfg.tie_embeddings)[name])
+
+
+def embed_lookup(ids, p, scale_by_dim: bool = False, ctx=None):
+    axes, lo = vocab_split(ctx)
+    table = _embed_weight(p, "table", ctx)
+    if axes:
+        # vocab-parallel: each rank looks up the ids in its rows, zeros
+        # elsewhere, and the sum over the vocab axes puts every row in
+        local = ids - lo
+        mine = (local >= 0) & (local < table.shape[0])
+        x = table[local.clamp(0, table.shape[0] - 1)]
+        x = reduce_from(torch.where(mine[..., None], x, 0), ctx.mesh, axes)
+    else:
+        x = table[ids]
     if scale_by_dim:
         # sqrt(d_model) rounded to the activation dtype first, as
         # jnp.sqrt(jnp.array(d, x.dtype)) is
-        scale = torch.tensor(math.sqrt(p["table"].shape[-1])).to(x.dtype)
+        scale = torch.tensor(math.sqrt(table.shape[-1])).to(x.dtype)
         x = x * scale.item()
     return x
 
 
-def logits_out(x, p):
+def logits_out(x, p, ctx=None):
     """f32 logits, as ``preferred_element_type=jnp.float32`` gives them:
-    the products of the stored values, summed in f32."""
+    the products of the stored values, summed in f32.  On a mesh, the
+    rank's vocab columns (``vocab_split``)."""
+    axes, _ = vocab_split(ctx)
+    if axes:
+        x = copy_to(x, ctx.mesh, axes)
     if "lm_head" in p:
-        return torch.einsum("bsd,dv->bsv", x.float(), p["lm_head"].float())
-    return torch.einsum("bsd,vd->bsv", x.float(), p["table"].float())
+        return torch.einsum("bsd,dv->bsv", x.float(),
+                            _embed_weight(p, "lm_head", ctx).float())
+    return torch.einsum("bsd,vd->bsv", x.float(),
+                        _embed_weight(p, "table", ctx).float())
 
 
 def sinusoidal_positions(length: int, d_model: int, offset: int = 0,

@@ -10,6 +10,13 @@ loops; in training the model checkpoints each pattern unit
 carrying (conv tail, ssm state).  Dtypes follow the
 reference step by step: the projections in x's dtype, ``+ dt_bias``
 (f32) before the softplus, the recurrence in f32.
+
+On a mesh (``ctx``), ``d_inner`` splits over the ``state_inner`` axes:
+``in_x`` and ``in_z`` are column-parallel, the conv and the scan run on
+the rank's channels, ``w_dt``, ``w_B`` and ``w_C`` contract over the
+split ``d_inner`` (one ``reduce_from`` of the three partial sums a step,
+then ``copy_to`` back into the split channels), ``dt_proj`` is
+column-parallel and ``out`` row-parallel.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.mesh import copy_to, reduce_from
 from repro_torch.models.param import PSpec
 
 
@@ -50,15 +58,29 @@ def mamba_state_shapes(cfg: ArchConfig, batch: int):
     }
 
 
-def _chunk_step(p, h, x_t):
+def _inner_proj(p, x_t, split):
+    """``x_t``'s projections to the dt rank, B and C.  Each contracts
+    over ``d_inner``: on a split (``(mesh, axes)``) the rank's are partial
+    sums, summed over the axes in one all-reduce, whose result feeds the
+    split channels again."""
+    parts = (x_t @ p["w_dt"], x_t @ p["w_B"], x_t @ p["w_C"])
+    if split is None:
+        return parts
+    mesh, axes = split
+    whole = copy_to(reduce_from(torch.cat(parts, dim=-1), mesh, axes),
+                    mesh, axes)
+    return whole.split([t.shape[-1] for t in parts], dim=-1)
+
+
+def _chunk_step(p, h, x_t, split=None):
     """One recurrence step.  x_t: (B, din) post-conv activations.  The
     state h (B, din, N) is updated in place (at decode it is the cache's
     slot) and returned; where autograd records the step, a new state is
     returned instead, since the backward reads every step's state."""
-    dt = F.softplus(
-        (x_t @ p["w_dt"]) @ p["dt_proj"] + p["dt_bias"]).float()  # (B, din)
-    Bm = (x_t @ p["w_B"]).float()                                  # (B, N)
-    Cm = (x_t @ p["w_C"]).float()                                  # (B, N)
+    dtr, Bm, Cm = _inner_proj(p, x_t, split)
+    dt = F.softplus(dtr @ p["dt_proj"] + p["dt_bias"]).float()     # (B, din)
+    Bm = Bm.float()                                                # (B, N)
+    Cm = Cm.float()                                                # (B, N)
     A = -torch.exp(p["A_log"].float())                             # (din, N)
     dA = torch.exp(dt[..., None] * A[None])                        # (B, din, N)
     xf = x_t.float()
@@ -84,12 +106,23 @@ def _conv_chunk(x, tail, w, b):
     return out, xp[:, -(K - 1):]
 
 
-def mamba_forward(x, p, cfg: ArchConfig, *, chunk: int = 64, state=None):
+def mamba_forward(x, p, cfg: ArchConfig, *, chunk: int = 64, state=None,
+                  ctx=None):
     """x: (B, L, D) -> (y, final_state).  L must be a multiple of the
     chunk (or at most one chunk), or 1 for decode.  A given ``state``'s
-    ssm is updated in place; the conv tail is returned anew."""
+    ssm is updated in place; the conv tail is returned anew.  With a
+    ``ctx`` on a mesh, ``p`` holds the rank's slices (module docstring)
+    and the state the rank's channels."""
     B, L, D = x.shape
-    din = cfg.d_inner
+    split = None
+    if ctx is not None and ctx.mesh is not None:
+        specs = mamba_specs(cfg)
+        p = ctx.gathered_tree(p, specs)
+        axes = ctx.axes(specs["in_x"], 1)
+        if axes:
+            split = (ctx.mesh, axes)
+            x = copy_to(x, ctx.mesh, axes)
+    din = p["in_x"].shape[1]
 
     if state is None:
         state = {
@@ -105,8 +138,8 @@ def mamba_forward(x, p, cfg: ArchConfig, *, chunk: int = 64, state=None):
         conv_out, new_tail = _conv_chunk(xz[:, None], state["conv"],
                                          p["conv_w"], p["conv_b"])
         xa = F.silu(conv_out[:, 0])
-        h, y = _chunk_step(p, state["ssm"], xa)
-        out = (y * F.silu(z)) @ p["out"]
+        h, y = _chunk_step(p, state["ssm"], xa, split)
+        out = _out(p, y * F.silu(z), split)
         return out[:, None], {"conv": new_tail, "ssm": h}
 
     chunk = min(chunk, L)
@@ -122,8 +155,14 @@ def mamba_forward(x, p, cfg: ArchConfig, *, chunk: int = 64, state=None):
         xa = F.silu(conv_out)
         ys = []
         for t in range(chunk):
-            h, y = _chunk_step(p, h, xa[:, t])
+            h, y = _chunk_step(p, h, xa[:, t], split)
             ys.append(y)
         ys = torch.stack(ys, dim=1)                           # (B, Q, din)
-        outs.append((ys * F.silu(z)) @ p["out"])              # (B, Q, D)
+        outs.append(_out(p, ys * F.silu(z), split))           # (B, Q, D)
     return torch.cat(outs, dim=1), {"conv": tail, "ssm": h}
+
+
+def _out(p, y, split):
+    """The row-parallel output projection: summed over the split."""
+    out = y @ p["out"]
+    return out if split is None else reduce_from(out, *split)

@@ -14,14 +14,21 @@ leaves where the JAX package scans.  ``loss_fn`` is the training loss:
 in train mode each pattern unit is recomputed in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), and
 each stacked leaf is split into its layers once per forward.
+
+On a mesh (``build_ctx``), the parameters are the rank's slices under
+the cell's rules and the blocks, the embedding and the head take the
+paths of sharded weights; ``loss_fn``'s logsumexp is then
+vocab-parallel (``_xent``).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
-from repro_torch.distributed.mesh import data_axes, make_rules, mesh_axis_size
+from repro_torch.distributed.mesh import (
+    all_reduce_axes, data_axes, make_rules, mesh_axis_size, reduce_from)
 from repro_torch.models import layers as L
 from repro_torch.models import param as PM
 from repro_torch.models.blocks import (
@@ -42,6 +49,11 @@ from repro_torch.models.param import PSpec, stack
 
 #: logical axes the activation constraints (``ctx.cons``) name
 _ACT_LOGICAL = ("seq", "act_embed", "vocab", "heads", "kv_seq")
+#: the logical axes a training cell's bodies shard: TP over ``model``,
+#: FSDP over the data axes, experts over ``model``
+_SHARDED_IN_TRAINING = frozenset({
+    "batch", "heads", "kv_heads", "mlp", "vocab", "embed", "embed_mlp",
+    "experts", "expert_mlp", "state_inner"})
 
 
 def build_ctx(cfg: ArchConfig, shape: ShapeSpec | None = None,
@@ -49,27 +61,37 @@ def build_ctx(cfg: ArchConfig, shape: ShapeSpec | None = None,
     """The context for one (arch, shape, mesh) cell, with the reference's
     rules.  Without a mesh: one device, no rules.
 
-    On a mesh the port splits only the batch: rules that would shard a
-    weight, a cache or an activation over a mesh axis of more than one
-    member raise ``NotImplementedError`` (at world size > 1 that is every
-    cell but the small-dense DP ones in training)."""
+    A training cell runs every rule of the table but xLSTM's ``head_v``:
+    its bodies take the path of a sharded weight wherever a spec names a
+    mesh axis, of one member too.  ``head_v`` raises
+    ``NotImplementedError`` wherever the rules give it a mesh axis, and a
+    serving shape wherever a rule but the batch's shards over an axis of
+    more than one member (``kv_seq``'s flash-decoding, the decode batch):
+    serving on a mesh is the next slice (ROADMAP.md §1)."""
     if mesh is None:
         return ModelCtx(cfg=cfg)
     rules = make_rules(cfg, shape, mesh)
     da = data_axes(mesh)
     dp = mesh_axis_size(mesh, da)
     named = {n for _, p in PM.tree_leaves_with_paths(model_specs(cfg))
-             for n in p.logical} | set(_ACT_LOGICAL)
-    if not shape.is_training:
-        named |= {n for _, p in PM.tree_leaves_with_paths(
-            cache_pspecs(cfg, shape)) for n in p.logical}
-    wide = sorted((n, rules[n]) for n in named - {None, "batch"}
-                  if n in rules and mesh_axis_size(mesh, rules[n]) > 1)
-    if wide:
-        raise NotImplementedError(
-            f"{cfg.name} {shape.name}: the rules shard {dict(wide)} over "
-            "mesh axes of more than one member; weight sharding (TP, FSDP, "
-            "expert parallelism) is the next slice (ROADMAP.md §1)")
+             for n in p.logical} - {None}
+    if shape.is_training:
+        off = sorted((n, rules[n]) for n in named - _SHARDED_IN_TRAINING
+                     if rules.get(n))
+        if off:
+            raise NotImplementedError(
+                f"{cfg.name} {shape.name}: training has no sharded body for "
+                f"{dict(off)} (the mLSTM state's v dim; ROADMAP.md §1)")
+    else:
+        named |= set(_ACT_LOGICAL) | {
+            n for _, p in PM.tree_leaves_with_paths(cache_pspecs(cfg, shape))
+            for n in p.logical}
+        off = sorted((n, rules[n]) for n in named - {None, "batch"}
+                     if n in rules and mesh_axis_size(mesh, rules[n]) > 1)
+        if off:
+            raise NotImplementedError(
+                f"{cfg.name} {shape.name}: serving on a mesh is the next "
+                f"slice (ROADMAP.md §1); the rules shard {dict(off)}")
     return ModelCtx(
         cfg=cfg,
         rules=rules,
@@ -107,9 +129,10 @@ def model_specs(cfg: ArchConfig):
     return specs
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
-    """Random weights from ``seed``, generated on ``device``."""
-    return PM.initialize(model_specs(cfg), seed, device)
+def init_params(cfg: ArchConfig, seed: int = 0, device="cuda", local=None):
+    """Random weights from ``seed``, generated on ``device``; with
+    ``local`` (``param.shard_local``'s tree), the rank's slices only."""
+    return PM.initialize(model_specs(cfg), seed, device, local)
 
 
 # ----------------------------------------------------- cache pspecs --------
@@ -276,7 +299,8 @@ def apply_stack(cfg, ctx, layout: StackLayout, bp, x, *, mode: str,
 
 def _embed_decoder_input(cfg, ctx, params, tokens, *, pos_offset=0,
                          vision_embeds=None):
-    x = L.embed_lookup(tokens, params["embed"], scale_by_dim=cfg.tie_embeddings)
+    x = L.embed_lookup(tokens, params["embed"],
+                       scale_by_dim=cfg.tie_embeddings, ctx=ctx)
     if cfg.family == "encdec":
         x = x + L.sinusoidal_positions(
             tokens.shape[1], cfg.d_model, pos_offset, x.device).to(x.dtype)
@@ -310,16 +334,30 @@ def loss_fn(cfg: ArchConfig, ctx: ModelCtx, params, batch):
     x, _, aux = apply_stack(cfg, ctx, layout, params["blocks"], x,
                             mode="train", enc_out=enc_out)
     x = _norm(cfg, x, params["ln_f"])
-    logits = L.logits_out(x, params["embed"])            # (B, S, V) f32
+    logits = L.logits_out(x, params["embed"], ctx)   # (B, S, V_loc) f32
     logits = ctx.cons(logits, ("batch", "seq", "vocab"))
-
-    tgt = tokens[:, 1:].long()
-    lg = logits[:, :-1]
-    lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, tgt[..., None])[..., 0]
-    xent = (lse - ll).mean()
+    xent = _xent(ctx, logits[:, :-1], tokens[:, 1:].long()).mean()
     loss = xent + 0.01 * aux
     return loss, {"xent": xent, "aux": aux}
+
+
+def _xent(ctx, lg, tgt):
+    """Each position's ``logsumexp(lg) - lg[tgt]`` over the whole padded
+    vocab, the pad columns included, as the reference takes it.  With
+    the vocab split (``layers.vocab_split``), ``lg`` is the rank's
+    columns: the max and the sum of exponentials are reduced over the
+    vocab axes, and the target logit is taken where it lies and summed."""
+    axes, lo = L.vocab_split(ctx)
+    top = lg.detach().amax(dim=-1, keepdim=True)
+    if axes:
+        all_reduce_axes(top, ctx.mesh, axes, op=dist.ReduceOp.MAX)
+    se = reduce_from(torch.exp(lg - top).sum(dim=-1), ctx.mesh, axes)
+    lse = torch.log(se) + top[..., 0]
+    local = tgt - lo
+    mine = (local >= 0) & (local < lg.shape[-1])
+    ll = torch.gather(lg, -1, local.clamp(0, lg.shape[-1] - 1)[..., None])
+    ll = reduce_from(torch.where(mine, ll[..., 0], 0), ctx.mesh, axes)
+    return lse - ll
 
 
 def prefill(cfg: ArchConfig, ctx: ModelCtx, params, batch):
@@ -335,14 +373,15 @@ def prefill(cfg: ArchConfig, ctx: ModelCtx, params, batch):
     x, caches, _ = apply_stack(cfg, ctx, layout, params["blocks"], x,
                                mode="prefill", enc_out=enc_out)
     x = _norm(cfg, x[:, -1:], params["ln_f"])
-    logits = L.logits_out(x, params["embed"])[:, 0]
+    logits = L.logits_out(x, params["embed"], ctx)[:, 0]
     return logits, caches
 
 
 def decode_step(cfg: ArchConfig, ctx: ModelCtx, params, caches, token, pos):
     """One decode step.  token: (B, 1) int; pos: int position.  The
     caches are updated in place and returned."""
-    x = L.embed_lookup(token, params["embed"], scale_by_dim=cfg.tie_embeddings)
+    x = L.embed_lookup(token, params["embed"],
+                       scale_by_dim=cfg.tie_embeddings, ctx=ctx)
     if cfg.family == "encdec":
         x = x + L.sinusoid_at(pos, cfg.d_model,
                               x.device).to(x.dtype)[None, None]
@@ -351,5 +390,5 @@ def decode_step(cfg: ArchConfig, ctx: ModelCtx, params, caches, token, pos):
     x, new_caches, _ = apply_stack(cfg, ctx, layout, params["blocks"], x,
                                    mode="decode", caches=caches, pos=pos)
     x = _norm(cfg, x, params["ln_f"])
-    logits = L.logits_out(x, params["embed"])[:, 0]
+    logits = L.logits_out(x, params["embed"], ctx)[:, 0]
     return logits, new_caches

@@ -121,17 +121,27 @@ def _leaf_seed(seed: int, name: str) -> int:
     return (seed * 0x9E3779B1 + zlib.crc32(name.encode())) % (2 ** 63)
 
 
-def initialize(tree, seed: int, device="cuda"):
+def initialize(tree, seed: int, device="cuda", local=None):
     """Real tensors on ``device``; each normal leaf draws from its own
     ``torch.Generator`` seeded from ``seed`` and the crc32 of the leaf's
     path, as the JAX package folds the path into its key.  Numbers are
     generated on the device itself, so a 2.7 B-parameter model never
     passes through the host.  The CPU and CUDA generators give different
     numbers for one seed: tests that compare devices initialise once and
-    copy."""
+    copy.  With ``local`` (``shard_local``'s tree), each leaf is drawn
+    whole and cut to the rank's slice before the next is drawn, so every
+    rank holds its slice of the same weights."""
     device = torch.device(device)
+    cuts = {} if local is None else dict(tree_leaves_with_paths(local))
 
     def make(path, spec):
+        t = draw(path, spec)
+        if path not in cuts:
+            return t
+        part = t[cuts[path].index]
+        return t if part.shape == t.shape else part.clone()
+
+    def draw(path, spec):
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
         if spec.init == "ones":

@@ -182,10 +182,25 @@ def _zip_leaves(p, *trees):
         yield (p, *trees)
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, shardings=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in the reference's order) of each
-    leaf's sum of squares, in f32."""
+    leaf's sum of squares, in f32.  With ``shardings`` (each leaf's
+    ``Sharding``, ``grads`` the rank's slices), a leaf's sum is taken
+    over the axes its spec splits (one all-reduce for the leaves that
+    split over the same axes); a replicated leaf counts once."""
     sq = [g.float().square().sum() for (g,) in _zip_leaves(grads)]
+    if shardings is not None:
+        from repro_torch.distributed.mesh import all_reduce_axes, spec_axes
+        shd, split = PM.tree_leaves(shardings), {}
+        for i, s in enumerate(shd):
+            if spec_axes(s.spec):
+                split.setdefault(tuple(sorted(spec_axes(s.spec))),
+                                 []).append(i)
+        for axes, idx in split.items():
+            vec = all_reduce_axes(torch.stack([sq[i] for i in idx]),
+                                  shd[idx[0]].mesh, axes)
+            for i, v in zip(idx, vec.unbind()):
+                sq[i] = v
     return torch.sqrt(sum(sq[1:], sq[0]))
 
 
@@ -198,7 +213,8 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update(oc: OptConfig, params, grads, opt_state, shardings=None):
+def adamw_update(oc: OptConfig, params, grads, opt_state, shardings=None,
+                 param_shardings=None):
     """One AdamW step.  Writes ``params`` and ``opt_state`` (m, v and the
     step) in place and returns (params, opt_state, metrics).  The
     gradient clip is folded into the update: each leaf's gradient is
@@ -208,8 +224,11 @@ def adamw_update(oc: OptConfig, params, grads, opt_state, shardings=None):
     With ``shardings`` (``zero1_shardings``: ZeRO-1), the moments are this
     rank's shards and the parameters and gradients whole: the rank
     updates its ``local_slice`` of each parameter from its moment shard,
-    then all-gathers the new parameter over the spec's axes."""
-    gnorm = global_norm(grads)
+    then all-gathers the new parameter over the spec's axes.  With
+    ``param_shardings`` alone, every leaf is the rank's slice of its
+    parameter and updates in place; the norm reads them
+    (``global_norm``)."""
+    gnorm = global_norm(grads, param_shardings)
     dev = gnorm.device
     c = lambda v: _f32(v, dev)          # noqa: E731
     clip = torch.clamp(c(oc.grad_clip) / torch.clamp(gnorm, min=1e-9),
@@ -247,7 +266,17 @@ def adamw_update(oc: OptConfig, params, grads, opt_state, shardings=None):
             upd(p, g, m, v)
             return
         # elementwise along the leading dim (the int8 blocks run along the
-        # last), so slices of it update exactly as the whole leaf would
+        # last), so slices of it update exactly as the whole leaf would;
+        # a contiguous leaf is taken as the rows of its last dim first
+        # (views, written in place), so that a leaf stacked (1, 1, ...)
+        # slices too
+        states = [t for st in (m, v) for t in (
+            st.values() if isinstance(st, dict) else [st])]
+        if all(t.is_contiguous() for t in (p, g, *states)):
+            rows = lambda t: t.view(-1, t.shape[-1])    # noqa: E731
+            p, g = rows(p), rows(g)
+            m, v = ({k: rows(t) for k, t in st.items()}
+                    if isinstance(st, dict) else rows(st) for st in (m, v))
         n = max(1, _UPDATE_SLICE // max(p[0].numel(), 1))
         parts = [t.split(n) for t in (p, g)]
         for st in (m, v):

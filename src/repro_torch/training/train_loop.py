@@ -7,11 +7,14 @@ updates the parameters and the optimizer state in place; the
 checkpointer copies them to the host before its thread writes.
 
 With a mesh (a ``DeviceMesh``; ``None`` is one device and no process
-group), every rank runs this loop: it draws the same global batch from
-the pipeline (keyed by seed and step), the step keeps the rank's rows
-and all-reduces the gradients, and the optimizer state is ZeRO-1's
-shards (``optimizer.zero1_shardings`` under ``mesh.make_opt_rules``).
-Every rank takes part in a checkpoint's gather, rank 0 writes it, and a
+group), every rank runs this loop: it holds its slice of every
+parameter under the cell's rules (drawn whole leaf by leaf from the
+seed, then cut), draws the same global batch from the pipeline (keyed
+by seed and step), and the step keeps the rank's rows and averages the
+gradients.  The moments are slices of their parameter's shape or, for
+the small-dense cells (whole parameters), ZeRO-1's shards
+(``optimizer.zero1_shardings`` under ``mesh.make_opt_rules``).  Every
+rank takes part in a checkpoint's gather, rank 0 writes it, and a
 restore reads each rank's slices.  The recovery path
 (``distributed/fault.py``) is the same on every rank.
 """
@@ -24,7 +27,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.distributed import fault as F
-from repro_torch.distributed.mesh import make_opt_rules
+from repro_torch.distributed.mesh import make_opt_rules, use_small_dense_dp
 from repro_torch.models import model as M
 from repro_torch.models import param as PM
 from repro_torch.training import checkpoint as CKPT
@@ -53,17 +56,21 @@ def run_training(cfg: ArchConfig, shape: ShapeSpec, mesh=None, *, steps: int,
     policy = policy or F.FaultPolicy(checkpoint_every=0)
     ctx = M.build_ctx(cfg, shape, mesh)
     pspecs = M.model_specs(cfg)
-    opt_rules = zshd = tree_shd = None
+    opt_rules = zshd = tree_shd = local = None
     if mesh is not None:
         opt_rules = make_opt_rules(cfg, shape, mesh, ctx.rules)
+        # checks that int8 moments keep whole 128-blocks in either case
         zshd = zero1_shardings(pspecs, oc.state_dtype, opt_rules, mesh)
+        if not use_small_dense_dp(cfg, shape, mesh):
+            zshd = None
         tree_shd = {"params": PM.shardings(pspecs, ctx.rules, mesh),
                     "opt": PM.shardings(opt_pspecs(pspecs, oc.state_dtype),
                                         opt_rules, mesh)}
+        local = PM.shard_local(pspecs, ctx.rules, mesh)
     train_step = build_train_step(cfg, ctx, oc, accum, zshd)
 
     def fresh_state():
-        params = PM.trainable(M.init_params(cfg, 0, device))
+        params = PM.trainable(M.init_params(cfg, 0, device, local))
         opt_state = init_opt_state(pspecs, oc.state_dtype, device,
                                    rules=opt_rules, mesh=mesh)
         return TrainState(params, opt_state,

@@ -11,13 +11,20 @@ optimizer state in place.
 
 On a mesh (``ctx.mesh``) the step runs on every rank: the rank takes its
 rows of the global batch (contiguous, in the ``batch`` spec's chunk
-order, ``mesh.local_slice``), runs its microbatches, and all-reduces
-each gradient leaf in f32 over the axes that split the batch, as a sum
-then divided by their size (gloo has no average); the loss and metrics
-likewise.  The reference's loss is a token mean over the global batch
-and the shards are equal, so the mean of rank means is the global mean,
-and the clip sees the full gradients.  With ``shardings`` the optimizer
-state is ZeRO-1's (``optimizer.zero1_shardings``).
+order, ``mesh.local_slice``), runs its microbatches on its slices of the
+parameters, and averages each gradient leaf in f32 over the data axes
+and the axes that split the batch: summed, then divided by their size
+(gloo has no average).  A leaf its spec splits over a data axis (FSDP)
+arrives summed over that axis already (``mesh.gather_from``'s
+reduce-scatter), so only the rest of the axes are all-reduced; the loss
+and metrics are averaged likewise.  The reference's loss is a token
+mean over the global batch and the shards are equal, so the mean of
+rank means is the global mean.  The clip's norm sums each leaf over the
+axes its slices split (``optimizer.global_norm``).  With ``shardings``
+the optimizer state is ZeRO-1's (``optimizer.zero1_shardings``), for the
+small-dense cells, whose parameters are whole on every rank; otherwise
+the moments are slices of their parameter's shape and the update runs
+on the rank's slices.
 """
 from __future__ import annotations
 
@@ -88,7 +95,11 @@ def build_train_step(cfg: ArchConfig, ctx, oc: OptConfig, accum: int,
     (and ``xent``, ``aux`` with one microbatch, as the reference).
     ``params`` must be ``param.trainable``; it and ``opt_state`` are
     updated in place and returned.  On a mesh, ``batch`` is the global
-    batch and ``shardings`` the moments' (ZeRO-1)."""
+    batch, ``params`` the rank's slices and ``shardings`` the moments'
+    under ZeRO-1."""
+    pshd = None
+    if ctx.mesh is not None:
+        pshd = PM.shardings(M.model_specs(cfg), ctx.rules, ctx.mesh)
 
     def train_step(params, opt_state, batch):
         axes = None
@@ -111,26 +122,36 @@ def build_train_step(cfg: ArchConfig, ctx, oc: OptConfig, accum: int,
             loss = loss / n
             metrics = {}
         if axes is not None:
-            grads, loss, metrics = _mean_over(ctx.mesh, axes, grads,
-                                              dict(metrics, loss=loss))
+            grads, loss, metrics = _mean_over(
+                ctx.mesh, tuple(dict.fromkeys(ctx.data_axes + axes)), grads,
+                pshd, dict(metrics, loss=loss))
         params, opt_state, om = adamw_update(oc, params, grads, opt_state,
-                                             shardings)
+                                             shardings, pshd)
         return params, opt_state, dict(metrics, loss=loss, **om)
 
     return train_step
 
 
-def _mean_over(mesh, axes, grads, scalars):
+def _mean_over(mesh, axes, grads, shardings, scalars):
     """(grads, loss, other metrics) averaged over the ranks that differ on
-    ``axes``: each gradient leaf all-reduced in f32, one leaf at a time,
-    and the scalars in one more all-reduce."""
+    ``axes``: each gradient leaf in f32, one leaf at a time, all-reduced
+    over the axes its spec does not split (``gather_from`` summed it over
+    the others), then divided by their size; the scalars in one more
+    all-reduce."""
     leaves = PM.tree_leaves(grads)
     n = torch.tensor(float(mesh_axis_size(mesh, axes)),
                      device=leaves[0].device)
     out = []
-    for g in leaves:
+    for g, s in zip(leaves, PM.tree_leaves(shardings)):
+        rest = tuple(a for a in axes if a not in spec_axes(s.spec))
+        if not rest:
+            # in its own dtype: the quotient is rounded once, as it is
+            # through f32
+            out.append(g.div_(n))
+            continue
         gf = g.float() if g.dtype != torch.float32 else g
-        all_reduce_axes(gf, mesh, axes).div_(n)
+        all_reduce_axes(gf, mesh, rest)
+        gf.div_(n)
         out.append(gf if gf is g else gf.to(g.dtype))
     names = sorted(scalars)
     vec = torch.stack([torch.as_tensor(scalars[k], device=n.device).float()

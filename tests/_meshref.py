@@ -29,6 +29,23 @@ DP_SCENARIOS = (("minicpm_2x2", "minicpm-2b", (2, 2), ("data", "model")),
                 ("whisper_2x2", "whisper-medium", (2, 2), ("data", "model")))
 DP_SEQ, DP_BATCH = 32, 4
 
+#: the weight-sharding scenarios: (name, arch, mesh shape, axis names,
+#: global batch), one train step each at TP_SEQ tokens a row.  None is a
+#: small-dense DP cell: each is MoE or has a batch that does not fill
+#: its mesh.
+TP_SCENARIOS = (
+    ("nemotron_2x2", "nemotron-4-15b", (2, 2), ("data", "model"), 2),
+    ("qwen72_1x4", "qwen2-72b", (1, 4), ("data", "model"), 2),
+    ("dbrx_2x2", "dbrx-132b", (2, 2), ("data", "model"), 4),
+    ("grok_1x8", "grok-1-314b", (1, 8), ("data", "model"), 2),
+    ("jamba_2x2", "jamba-1.5-large-398b", (2, 2), ("data", "model"), 4),
+    ("whisper_2x2", "whisper-medium", (2, 2), ("data", "model"), 2),
+)
+TP_SEQ = 32
+#: the scenarios whose MoE semantics on a mesh (capacity from the local
+#: tokens, ``aux`` a mean of per-shard losses) differ from one device's
+TP_MOE = ("dbrx_2x2", "grok_1x8", "jamba_2x2")
+
 #: local_slice cases: (mesh shape, axis names, global shape, spec)
 SLICE_CASES = (
     ((2, 2), ("data", "model"), (8, 12), (("data", "model"), None)),
@@ -186,6 +203,132 @@ def dp(inputs, out):
             C.save(Path(out) / "ref_ckpt", 1, {"params": newp, "opt": newo})
 
 
+def _from_keyed(tree, prefix: str, data):
+    """The tree of ``tree``'s structure from reference-keyed arrays."""
+    import jax
+    import jax.numpy as jnp
+    from repro.training.checkpoint import _leaf_key
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(tree)
+    return jax.tree_util.tree_unflatten(treedef, [
+        jnp.asarray(data[f"{prefix}__{_leaf_key(p)}"]) for p, _ in leaves])
+
+
+def tp(inputs, out):
+    """One jitted train step per weight-sharding scenario on its mesh, in
+    f32, from the weights and batch the tests made, with the shardings
+    ``dryrun.lower_cell`` gives; the loss, the gradients the step hands
+    to ``adamw_update``, the new parameters and moments.  The same step
+    without sharding, on a 1x1 mesh with one row a microbatch (the dense
+    scenarios), or, for the MoE scenarios, the gradient without a mesh of
+    the same function: the mean over the batch rows of one row's gradient
+    on a 1x1 mesh (every (microbatch, data shard) of the step holds one
+    row, and a shard's capacity and balance loss are its own)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeSpec
+    from repro.distributed.mesh import make_opt_rules, use_small_dense_dp
+    from repro.models import io
+    from repro.models import model as M
+    from repro.models import param as PM
+    from repro.training import optimizer as O
+    from repro.training import train_step as TS
+
+    update = TS.adamw_update
+
+    def with_grads(oc, params, grads, opt_state):
+        p, o, m = update(oc, params, grads, opt_state)
+        return p, o, dict(m, grads=grads)
+    TS.adamw_update = with_grads
+    data = np.load(inputs)
+    for name, arch, mshape, axes, gb in TP_SCENARIOS:
+        cfg = dataclasses.replace(get_arch(arch).reduced(), cache_dtype="f32")
+        mesh = _mesh(mshape, axes)
+        shape = ShapeSpec("t", TP_SEQ, gb, "train")
+        assert not use_small_dense_dp(cfg, shape, mesh), name
+        ctx = M.build_ctx(cfg, shape, mesh)
+        pspecs = M.model_specs(cfg)
+        params = _from_keyed(pspecs, f"{name}/params", data)
+        ospecs = O.opt_pspecs(pspecs, "f32")
+        p_shd = PM.shardings(pspecs, ctx.rules, mesh)
+        o_shd = PM.shardings(ospecs, make_opt_rules(cfg, shape, mesh,
+                                                    ctx.rules), mesh)
+        bspecs = io.batch_pspecs(cfg, shape)
+        b_shd = PM.shardings(bspecs, ctx.rules, mesh)
+        batch = {k: jnp.asarray(data[f"{name}/batch/{k}"]) for k in bspecs}
+        opt = PM.initialize(ospecs, jax.random.key(1))
+        step = TS.build_train_step(cfg, ctx, O.OptConfig(
+            schedule=cfg.lr_schedule), TS.default_accum(shape, mesh, cfg))
+        with jax.set_mesh(mesh):
+            newp, newo, m = jax.jit(
+                step, in_shardings=(p_shd, o_shd, b_shd),
+                out_shardings=(p_shd, o_shd, None))(params, opt, batch)
+        res = {"loss": np.asarray(m["loss"]), **_keyed("grads", m["grads"]),
+               **_keyed("new_params", newp), **_keyed("new_opt", newo)}
+        one = _mesh((1, 1), ("data", "model"))
+        if name not in TP_MOE:
+            step1 = TS.build_train_step(cfg, M.build_ctx(cfg, shape, one),
+                                        O.OptConfig(schedule=cfg.lr_schedule),
+                                        gb)
+            with jax.set_mesh(one):
+                p1, o1, m1 = jax.jit(step1)(params, opt, batch)
+            res.update({**_keyed("unsharded_grads", m1["grads"]),
+                        **_keyed("unsharded_new_params", p1),
+                        **_keyed("unsharded_new_opt", o1)})
+        else:
+            ctx1 = M.build_ctx(cfg, ShapeSpec("t", TP_SEQ, 1, "train"), one)
+            grad = jax.jit(jax.grad(
+                lambda p_, b_: M.loss_fn(cfg, ctx1, p_, b_)[0]))
+            with jax.set_mesh(one):
+                rows = [grad(params, {k: v[r:r + 1] for k, v in
+                                      batch.items()}) for r in range(gb)]
+            res.update(_keyed("unsharded_grads", jax.tree.map(
+                lambda *g: sum(g) / gb, *rows)))
+        np.savez(Path(out) / f"tp_{name}.npz", **res)
+    xattn(data, out)
+
+
+#: the cross-attention block (``dec_attn``, which no architecture's
+#: pattern names) on Whisper-medium reduced: its mesh and batch rows
+XATTN_MESH, XATTN_ROWS = (2, 2), 2
+
+
+def xattn(data, out):
+    """The gradient of ``sum(apply_block(dec_attn) * w)`` with respect to
+    the block's weights, its input and the encoder output, on the
+    (2, 2) mesh with the training rules, the rows split over ``data``."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeSpec
+    from repro.models import blocks as B
+    from repro.models import model as M
+    from repro.models import param as PM
+
+    cfg = dataclasses.replace(get_arch("whisper-medium").reduced(),
+                              cache_dtype="f32")
+    mesh = _mesh(XATTN_MESH, ("data", "model"))
+    ctx = M.build_ctx(cfg, ShapeSpec("t", TP_SEQ, XATTN_ROWS, "train"),
+                      mesh)
+    specs = B.block_specs(cfg, "dec_attn/dense")
+    params = _from_keyed(specs, "xattn/params", data)
+    w = data["xattn/w"]
+
+    def f(p, x, enc):
+        y, _, _ = B.apply_block(cfg, ctx, "dec_attn/dense", p, x,
+                                mode="train", enc_out=enc)
+        return (y * w).sum()
+    rows = NamedSharding(mesh, P("data", None, None))
+    with jax.set_mesh(mesh):
+        gp, gx, ge = jax.jit(jax.grad(f, argnums=(0, 1, 2)), in_shardings=(
+            PM.shardings(specs, ctx.rules, mesh), rows, rows))(
+            params, data["xattn/x"], data["xattn/enc"])
+    np.savez(Path(out) / "xattn.npz", x=np.asarray(gx), enc=np.asarray(ge),
+             **_keyed("grads", gp))
+
+
 def compression(inputs, out):
     """The reference's int8 cross-pod sync: (a) ``cross_pod_grad_sync`` on
     a pod-only (4,) mesh (its inputs are replicated, so every pod sends
@@ -263,5 +406,5 @@ def resharding(inputs, out):
 
 if __name__ == "__main__":
     sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
-    {"mesh_facts": mesh_facts, "dp": dp, "compression": compression,
+    {"mesh_facts": mesh_facts, "dp": dp, "tp": tp, "compression": compression,
      "resharding": resharding}[sys.argv[1]](sys.argv[2], sys.argv[3])

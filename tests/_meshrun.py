@@ -161,6 +161,149 @@ def restore_1x2(ref_dir, out):
     dist.destroy_process_group()
 
 
+def tp_state(name, arch, mshape, axes, gb, mesh, init):
+    """(cfg, shape, ctx, params, opt, tree shardings) of one
+    weight-sharding scenario on ``mesh``: the rank's slices of the tests'
+    initial parameters, its slices of zero moments."""
+    from _meshref import TP_SEQ
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.mesh import make_opt_rules
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.training import optimizer as O
+    cfg = dataclasses.replace(get_arch(arch).reduced(), cache_dtype="f32")
+    shape = ShapeSpec("t", TP_SEQ, gb, "train")
+    ctx = M.build_ctx(cfg, shape, mesh)
+    pspecs = M.model_specs(cfg)
+    opt_rules = make_opt_rules(cfg, shape, mesh, ctx.rules)
+    params = PM.trainable(PM.from_numpy(
+        _tree(pspecs, f"{name}/params", init), "cpu",
+        PM.shard_local(pspecs, ctx.rules, mesh)))
+    opt = O.init_opt_state(pspecs, "f32", "cpu", rules=opt_rules, mesh=mesh)
+    tree_shd = {"params": PM.shardings(pspecs, ctx.rules, mesh),
+                "opt": PM.shardings(O.opt_pspecs(pspecs, "f32"), opt_rules,
+                                    mesh)}
+    return cfg, shape, ctx, params, opt, tree_shd
+
+
+def tp(ref_dir, out):
+    """Each weight-sharding scenario whose mesh spans this world: one step
+    from the tests' weights and batch, the gradients read at
+    ``adamw_update``; rank 0 writes the loss and the gathered gradients,
+    parameters and moments.  After the first (2, 2) scenario, every rank
+    saves a checkpoint of its new state, which is restored on a (1, 4)
+    mesh under that mesh's rules and gathered."""
+    import torch.distributed as dist
+    from _meshref import TP_SCENARIOS, XATTN_MESH
+
+    from repro_torch.models import param as PM
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as TS
+
+    dist.init_process_group("gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    init = np.load(Path(out) / "tp_inputs.npz")
+    update, seen = TS.adamw_update, []
+
+    def with_grads(oc, params, grads, opt_state, *shardings):
+        seen.append(grads)
+        return update(oc, params, grads, opt_state, *shardings)
+    TS.adamw_update = with_grads
+    for name, arch, mshape, axes, gb in TP_SCENARIOS:
+        if int(np.prod(mshape)) != world:
+            continue
+        mesh = _mesh(mshape, axes)
+        cfg, shape, ctx, params, opt, tree_shd = tp_state(
+            name, arch, mshape, axes, gb, mesh, init)
+        step = TS.build_train_step(cfg, ctx, O.OptConfig(
+            schedule=cfg.lr_schedule), TS.default_accum(shape, mesh, cfg))
+        batch = {k.split("/")[-1]: torch_from(init[k]) for k in init.files
+                 if k.startswith(f"{name}/batch/")}
+        params, opt, m = step(params, opt, batch)
+        whole = CKPT.gathered({"grads": seen.pop(), "params": params,
+                               "opt": opt},
+                              dict(tree_shd, grads=tree_shd["params"]))
+        if rank == 0:
+            np.savez(Path(out) / f"tp_{name}.npz", loss=m["loss"].numpy(),
+                     **_keyed("grads", whole["grads"]),
+                     **_keyed("new_params", whole["params"]),
+                     **_keyed("new_opt", whole["opt"]))
+        if name != "nemotron_2x2":
+            continue
+        CKPT.save(Path(out) / "tp_ckpt", 1, {"params": params, "opt": opt},
+                  shardings=tree_shd)
+        dist.barrier()
+        mesh14 = _mesh((1, 4), axes)
+        *_, fresh, fresh_opt, shd14 = tp_state(name, arch, (1, 4), axes, gb,
+                                               mesh14, init)
+        got, _ = CKPT.restore(Path(out) / "tp_ckpt", 1,
+                              {"params": fresh, "opt": fresh_opt}, shd14)
+        whole = CKPT.gathered(got, shd14)
+        held = sum(t.numel() for t in PM.tree_leaves(got["params"]))
+        if rank == 0:
+            np.savez(Path(out) / "tp_ckpt_on_1x4.npz", held=held,
+                     **_keyed("new_params", whole["params"]),
+                     **_keyed("new_opt", whole["opt"]))
+    if world == int(np.prod(XATTN_MESH)):
+        xattn(init, out, rank)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def xattn(init, out, rank):
+    """``_meshref.xattn`` on this rank: its rows, its slices of the block's
+    weights; the gradients summed over ``data`` where no gather did, then
+    gathered; rank 0 writes them."""
+    import torch
+    from _meshref import TP_SEQ, XATTN_MESH, XATTN_ROWS
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.mesh import (
+        all_reduce_axes, coordinate, gather_dim, local_slice, spec_axes)
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.training import checkpoint as CKPT
+
+    cfg = dataclasses.replace(get_arch("whisper-medium").reduced(),
+                              cache_dtype="f32")
+    mesh = _mesh(XATTN_MESH, ("data", "model"))
+    ctx = M.build_ctx(cfg, ShapeSpec("t", TP_SEQ, XATTN_ROWS, "train"),
+                      mesh)
+    specs = B.block_specs(cfg, "dec_attn/dense")
+    p = PM.trainable(PM.from_numpy(_tree(specs, "xattn/params", init),
+                                   "cpu", PM.shard_local(specs, ctx.rules,
+                                                         mesh)))
+    sl = local_slice(init["xattn/x"].shape, ("data", None, None), mesh,
+                     coordinate(mesh))
+    x, enc, w = (torch_from(init[f"xattn/{k}"][sl]) for k in
+                 ("x", "enc", "w"))
+    x.requires_grad_()
+    enc.requires_grad_()
+    y, _, _ = B.apply_block(cfg, ctx, "dec_attn/dense", p, x, mode="train",
+                            enc_out=enc)
+    leaves = PM.tree_leaves(p)
+    *gp, gx, ge = torch.autograd.grad((y * w).sum(), leaves + [x, enc])
+    shd = PM.shardings(specs, ctx.rules, mesh)
+    for g, s in zip(gp, PM.tree_leaves(shd)):
+        if "data" not in spec_axes(s.spec):
+            all_reduce_axes(g, mesh, ("data",))
+    whole = CKPT.gathered(PM.tree_unflatten(p, gp), shd)
+    gx, ge = (gather_dim(t, mesh, ("data",), 0) for t in (gx, ge))
+    if rank == 0:
+        np.savez(Path(out) / "xattn.npz", x=gx.numpy(), enc=ge.numpy(),
+                 **_keyed("grads", whole))
+
+
+def torch_from(a):
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
 def compression(ref_dir, out):
     """Each rank's leaves through ``cross_pod_grad_sync``: the same leaves
     on every rank of a pod-only (4,) mesh, each rank's own leaves on (4,)
@@ -224,5 +367,6 @@ def resharding(ref_dir, out):
 
 if __name__ == "__main__":
     sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
-    {"dp": dp, "restore_1x2": restore_1x2, "compression": compression,
+    {"dp": dp, "restore_1x2": restore_1x2, "tp": tp,
+     "compression": compression,
      "resharding": resharding}[sys.argv[1]](sys.argv[2], sys.argv[3])

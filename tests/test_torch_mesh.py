@@ -162,15 +162,22 @@ def test_degraded_mesh_refuses_too_many_failures():
 
 
 def test_build_ctx_refuses_weight_sharding():
-    """DBRX's rules shard experts and FSDP-shard ``embed`` over 2x2; the
-    small-dense MiniCPM cell on the same mesh splits only the batch."""
+    """Weight sharding is refused where the port has no sharded body yet:
+    serving cells and xLSTM's ``head_v`` (``tests/test_torch_tp.py``
+    walks every cell).  DBRX's training rules (experts, FSDP ``embed``)
+    build; the small-dense MiniCPM cell on the same mesh splits only the
+    batch."""
     m = SimpleNamespace(shape=(2, 2), mesh_dim_names=("data", "model"))
     shape = ShapeSpec("t", 32, 4, "train")
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1"):
-        M.build_ctx(get_arch("dbrx-132b").reduced(), shape, m)
-    with pytest.raises(NotImplementedError, match="weight sharding"):
         M.build_ctx(get_arch("minicpm-2b").reduced(),
                     ShapeSpec("s", 32, 4, "decode"), m)
+    with pytest.raises(NotImplementedError, match="head_v"):
+        M.build_ctx(get_arch("xlstm-1.3b").reduced(),
+                    ShapeSpec("t", 32, 2, "train"), m)
+    moe = M.build_ctx(get_arch("dbrx-132b").reduced(), shape, m)
+    assert moe.rules["experts"] == ("model",) and moe.fsdp
+    assert moe.rules["embed"] == ("data",) and moe.batch_sharded
     ctx = M.build_ctx(get_arch("minicpm-2b").reduced(), shape, m)
     assert ctx.rules["batch"] == ("data", "model") and ctx.fsdp
     assert ctx.data_axes == ("data",) and ctx.batch_sharded

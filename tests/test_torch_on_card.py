@@ -610,6 +610,60 @@ def test_mesh_train_step_on_card_matches_no_mesh(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b",
+                                  "jamba-1.5-large-398b"])
+def test_sharded_train_step_on_card_matches_no_mesh(cuda_device, arch):
+    """One accum-2 step of a reduced MoE arch in f32 on the card through
+    a 1x1 NCCL mesh, whose training rules name ``model`` and ``data``
+    (every sharded body: experts, FSDP gathers, TP attention and vocab,
+    Mamba's d_inner), and without a mesh, from the same weights and
+    batch: the loss equal, every parameter and moment within 1e-6."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.mesh import make_opt_rules
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import io
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import build_train_step
+    cfg = dataclasses.replace(get_arch(arch).reduced(), cache_dtype="f32")
+    shape = ShapeSpec("t", 64, 4, "train")
+    host = PM.tree_map(lambda t: t.float(), M.init_params(cfg, 7, "cpu"))
+    batch = {k: v.to(cuda_device) for k, v in
+             io.synthetic_batch(cfg, shape, 3, "cpu").items()}
+    pspecs = M.model_specs(cfg)
+    oc = OptConfig(schedule=cfg.lr_schedule)
+    mesh = make_smoke_mesh("cuda")
+    try:
+        runs = []
+        for m in (None, mesh):
+            params = PM.trainable(PM.tree_map(
+                lambda t: t.to(cuda_device, copy=True), host))
+            if m is None:
+                ctx = M.build_ctx(cfg)
+                opt = init_opt_state(pspecs, "f32", cuda_device)
+            else:
+                ctx = M.build_ctx(cfg, shape, m)
+                assert ctx.rules["experts"] == ("model",)
+                opt = init_opt_state(pspecs, "f32", cuda_device, rules=(
+                    make_opt_rules(cfg, shape, m, ctx.rules)), mesh=m)
+            params, opt, met = build_train_step(cfg, ctx, oc, 2)(
+                params, opt, batch)
+            runs.append((met["loss"].item(), [t.detach().cpu() for t in
+                                              PM.tree_leaves((params, opt))]))
+    finally:
+        dist.destroy_process_group()
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[1][1], runs[0][1]):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(300,), (1,), (1000, 130)])
 def test_quantize_on_card_bit_equal_to_cpu(cuda_device, shape):
     from repro_torch.distributed.compression import dequantize, quantize
