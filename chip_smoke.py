@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 It imports the port (``src/repro_torch``) only, builds the hand-written
-CUDA kernels from the checkout's sources, and runs fifteen phases:
+CUDA kernels from the checkout's sources, and runs sixteen phases:
 
 1. environment: torch / CUDA versions, the card's name and power limit,
    and ``synth_payload`` against numpy's own uint8 draw;
@@ -114,11 +114,30 @@ CUDA kernels from the checkout's sources, and runs fifteen phases:
     own (idle share, the flash launches, the device time inside the
     ``nccl:*`` ranges); (b) DBRX, Grok-1 and Jamba reduced, one accum-2
     step each in f32 on the 1x1 mesh on the card against the CPU with
-    no mesh.
+    no mesh;
+16. serving on the card at world size 1, where the serving rules name
+    ``model`` (and ``data`` for MoE decode), so every serving body runs
+    and every collective is called on a group of one: ``Engine(...,
+    mesh=make_smoke_mesh("cuda"))`` in bf16 for (a) MiniCPM-2B at full
+    width and depth with phase 9's workload (vocab-parallel embedding
+    and logits, TP attention, the flash kernel on the rank's heads, each
+    layer's K/V handed to ``kv_seq`` by ``tube_reshard``,
+    ``extend_caches`` on the sharded sequence, the flash-decoding merge,
+    the owner's cache write), (b) Jamba-1.5-Large at full width cut to
+    its first 5 layers, 4 x 1024 tokens, 16 new (the MoE decode rules:
+    the batch replicated, ``kv_seq`` over ``(data, model)``, the 2-D
+    ``expert_mlp``, Mamba's state over ``state_inner``), (c) xLSTM-1.3B
+    at full width cut to its first 8 layers, 2 x 1024 tokens, 16 new
+    (``head_v``); each against the same engine without a mesh on the
+    same weights and prompt (prefill logits and tokens equal, decode
+    logits within a bf16 limit, one flash launch per attention layer in
+    each prefill), prefill and decode times, tokens/s and peak memory of
+    both, then each mesh generate profiled in a process of its own (idle
+    share, the device time inside the ``nccl:*`` ranges).
 
 The data plane (phases 4-6), the serving path (phase 9), the chaos run
-(10), the swap tier (11), each model of phase 12 and the training runs
-(13c, 14b, 15a) are the main paths:
+(10), the swap tier (11), each model of phase 12, the training runs
+(13c, 14b, 15a) and each mesh generate of phase 16 are the main paths:
 the launch counters are set to 0 just before each and read just after
 it; the reads that check landed bytes are kept out of the counts.
 Float32 matrix products stay in full f32 (TF32 off).  Any failed check
@@ -129,6 +148,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import gc
 import json
@@ -639,10 +659,29 @@ def moe_flash_cases() -> list:
     return list(cases)
 
 
+def mesh_serve_flash_cases() -> list:
+    """The flash shapes of phase 16's prefills, derived from MESH_SERVE
+    and the configs: on a mesh of one rank the kernel runs every head, so
+    each is the model's whole prefill shape (``model_flash_cases``'
+    rule)."""
+    from repro_torch.models.blocks import block_pattern, kind_meta
+    cases = {}
+    for _, arch, n_layers, B, L, _ in MESH_SERVE:
+        cfg = full_config(arch, n_layers)
+        for kind in block_pattern(cfg):
+            meta = kind_meta(cfg, kind)
+            if meta["mixer"] not in RECURRENT_MIXERS:
+                cases[(B, cfg.n_heads, cfg.n_kv_heads, L, L,
+                       cfg.resolved_head_dim, meta["causal"],
+                       meta["window"], 0, 0)] = 1
+    return list(cases)
+
+
 def attention_cases() -> dict:
     """Both attention kernels against their plain versions at every case
-    (FLASH_CASES, ``model_flash_cases()``, ``train_flash_cases()`` and
-    ``moe_flash_cases()`` for flash), f32 and bf16.  Returns the largest absolute difference per kernel and
+    (FLASH_CASES, ``model_flash_cases()``, ``train_flash_cases()``,
+    ``moe_flash_cases()`` and ``mesh_serve_flash_cases()`` for flash),
+    f32 and bf16.  Returns the largest absolute difference per kernel and
     dtype, and the paged kernel's largest row-relative one in bf16 under
     ("paged_attention", "bfloat16 row-relative")."""
     import torch
@@ -655,7 +694,7 @@ def attention_cases() -> dict:
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).removeprefix("torch.")
         for case in (FLASH_CASES + model_flash_cases() + train_flash_cases()
-                     + moe_flash_cases()):
+                     + moe_flash_cases() + mesh_serve_flash_cases()):
             B, Hq, Hkv, Lq, Lkv, D, causal, window, q_off, kv_off = case
             kw = dict(causal=causal, window=window, q_offset=q_off,
                       kv_offset=kv_off)
@@ -808,8 +847,8 @@ def paged_times(B, Hq, Hkv, D, page, NP, gen) -> dict:
 def attention_times() -> dict:
     """Device times in bf16 (CUDA graph replay, CUDA events) at
     MiniCPM-2B's prefill and decode shapes, at Qwen2-72B's heads and
-    (flash) at FLASH_MODEL_SHAPES and phases 13's and 15's training
-    shapes, beside the bound, the plain version and the library call
+    (flash) at FLASH_MODEL_SHAPES, phases 13's and 15's training shapes
+    and phase 16's prefills other than MiniCPM-2B's, beside the bound, the plain version and the library call
     (SDPA for flash; paged attention has no single PyTorch call)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(CASE_SEED + 1)
@@ -827,6 +866,11 @@ def attention_times() -> dict:
                B_m, Hq_m, Hkv_m, L_m, D_m, gen, causal=c)
               for name, (B_m, Hq_m, Hkv_m, L_m, D_m, c)
               in FLASH_MODEL_SHAPES.items()},
+           **{f"flash_attention/phase16-B{B_s}-L{L_s}-H{Hq_s}-{Hkv_s}-D{D_s}":
+              flash_times(B_s, Hq_s, Hkv_s, L_s, D_s, gen, causal=c_s)
+              for B_s, Hq_s, Hkv_s, L_s, _, D_s, c_s, _, _, _
+              in mesh_serve_flash_cases()
+              if (B_s, Hq_s, Hkv_s, L_s, D_s) != (B, H, H, L, D)},
            "paged_attention": paged_times(B, H, H, D, 128, L // 128, gen),
            "paged_attention/qwen2-72b": paged_times(
                B_q, Hq_q, Hkv_q, D_q, page_q, NP_q, gen)}
@@ -1437,12 +1481,25 @@ def _correlated_ms(trace, device_events, annotation: str) -> float:
     else:
         ranges = [e for e in trace if e.get("cat") == "user_annotation"
                   and e["name"] == annotation]
-    ranges = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in ranges]
+    # each thread's ranges as sorted disjoint intervals (their union), so
+    # that a launch is placed by bisection: a profiled generate holds
+    # ~10^4 ranges and ~10^5 launches
+    spans = {}
+    for e in sorted(ranges, key=lambda e: e["ts"]):
+        iv = spans.setdefault(e["tid"], [])
+        a, b = e["ts"], e["ts"] + e["dur"]
+        if iv and a <= iv[-1][1]:
+            iv[-1][1] = max(iv[-1][1], b)
+        else:
+            iv.append([a, b])
+    starts = {tid: [a for a, _ in iv] for tid, iv in spans.items()}
+
+    def inside(e) -> bool:
+        i = bisect.bisect_right(starts.get(e["tid"], []), e["ts"]) - 1
+        return i >= 0 and e["ts"] < spans[e["tid"]][i][1]
     ids = {e["args"]["correlation"] for e in trace
            if e.get("cat") in ("cuda_runtime", "cuda_driver")
-           and "correlation" in e.get("args", {})
-           and any(e["tid"] == tid and a <= e["ts"] < b
-                   for tid, a, b in ranges)}
+           and "correlation" in e.get("args", {}) and inside(e)}
     return sum(e["dur"] for e in device_events
                if e.get("args", {}).get("correlation") in ids) / 1e3
 
@@ -2233,6 +2290,247 @@ def moe_reduced_on_mesh(say) -> float:
             f"gradient relnorm worst {grad_err:.3g} ({leaf}; limit "
             f"{REDUCED_TOL:g}); {runs['cuda'][3]} flash launches")
     return worst
+
+
+# ------------------------------------------------------------ phase 16 ---
+#: phase 16: serving on the 1x1 NCCL mesh under the serving rules, each
+#: model against the same engine without a mesh, on the same weights and
+#: prompt: (label, arch, layers kept (None: all), requests, prompt
+#: tokens, new tokens).  16a is phase 9's workload; 16b Jamba-1.5-Large
+#: (hf:ai21labs/AI21-Jamba-1.5-Large) cut to phase 12's first 5 layers
+#: (the MoE decode rules: the batch replicated, ``kv_seq`` over
+#: ``(data, model)``, the 2-D ``expert_mlp``, Mamba's state over
+#: ``state_inner``); 16c xLSTM-1.3B cut to its first 8 layers (1 sLSTM,
+#: 7 mLSTM: ``head_v`` and the C state's v dim over ``model``)
+MESH_SERVE = (("16a", "minicpm-2b", None, FULL_BATCH, FULL_PROMPT, FULL_NEW),
+              ("16b", "jamba-1.5-large-398b", 5, 4, 1024, 16),
+              ("16c", "xlstm-1.3b", 8, 2, 1024, 16))
+#: each decode step's bf16 logits on the mesh against the same without
+#: one (PERF.md §6's prediction: bit-equal, since the merge over one rank
+#: takes the same arithmetic); prefill logits and tokens must be equal
+MESH_SERVE_RELNORM = 1e-2
+#: the tokens of phase 16's profiled generates: the prefill and 4 decode
+#: steps (the trace of a 32-step generate holds 10^5 device events)
+PROFILE_NEW = 5
+#: the prompt of the short generate that warms each phase-16 engine up
+#: (a multiple of the Mamba chunk, within one mLSTM chunk)
+WARM_PROMPT = 64
+#: the rules each phase-16 model must shard over the mesh's axes
+MESH_SERVE_RULES = ("heads", "vocab", "kv_seq", "experts", "expert_mlp",
+                    "state_inner", "head_v")
+
+
+def _mesh_serve_inputs(arch, n_layers, B, L):
+    import torch
+    cfg = full_config(arch, n_layers)
+    toks = torch.from_numpy(np.random.default_rng(CASE_SEED + 16).integers(
+        0, cfg.vocab_size, (B, L), dtype=np.int32))
+    return cfg, toks
+
+
+def mesh_serve_model(label, arch, n_layers, B, L, new, say) -> dict:
+    """One model of phase 16 at full width in bf16: random weights from
+    CASE_SEED, ``Engine.generate`` without a mesh and then on the 1x1
+    NCCL smoke mesh (the same weights: a rank of one holds them whole),
+    each after a short warm-up generate, each prefill and decode step
+    timed on the host clock after a device synchronise and its logits
+    kept; the mesh run's prefill logits and
+    tokens equal to the run without one, each decode step's logits within
+    MESH_SERVE_RELNORM, one flash launch per attention layer in each
+    prefill.  Everything it allocates is freed when it returns."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.serving.engine import Engine
+    cfg, toks = _mesh_serve_inputs(arch, n_layers, B, L)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, CASE_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mesh = make_smoke_mesh("cuda")
+    shape = ShapeSpec("serve", L + new, B, "decode")
+    runs = {}
+    for tag, m in (("plain", None), ("mesh", mesh)):
+        eng = Engine(cfg, shape, params, mesh=m)
+        with torch.no_grad():    # first calls: the communicator, handles
+            eng.generate({"tokens": toks[:, :WARM_PROMPT]}, max_new_tokens=2)
+        times = {"prefill": [], "decode": []}
+        logits = []
+
+        def timed(name, fn):
+            def run(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                lg, caches = fn(*args)
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t)
+                logits.append(lg.clone())
+                return lg, caches
+            return run
+
+        eng.prefill = timed("prefill", eng.prefill)
+        eng.decode = timed("decode", eng.decode)
+        torch.cuda.reset_peak_memory_stats()
+        FK.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out, caches = eng.generate({"tokens": toks}, max_new_tokens=new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del caches
+        dec = sorted(times["decode"])
+        runs[tag] = {"out": out, "logits": logits,
+                     "prefill_ms": times["prefill"][0] * 1e3,
+                     "decode_ms_median": dec[len(dec) // 2] * 1e3,
+                     "decode_tok_s": B * len(dec) / sum(dec),
+                     "generate_s": wall, "tok_s": B * new / wall,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "flash_launches": FK.flash_attention.launches}
+        if m is not None:
+            rules = eng.ctx.rules
+    a, b = runs["mesh"], runs["plain"]
+    logical = {n for tree in (M.model_specs(cfg), M.cache_pspecs(cfg, shape))
+               for _, p in PM.tree_leaves_with_paths(tree) for n in p.logical}
+    named = {n: rules[n] for n in MESH_SERVE_RULES
+             if rules[n] and n in logical}
+    n_attn = attention_layers(cfg)
+    check(a["flash_launches"] == b["flash_launches"] == n_attn,
+          f"{label} {arch}: flash launches {a['flash_launches']} on the mesh,"
+          f" {b['flash_launches']} without, not one per attention layer "
+          f"({n_attn})")
+    check(len(a["logits"]) == new and all(
+        bool(torch.isfinite(lg).all()) for lg in a["logits"]),
+        f"{label} {arch}: non-finite logits on the mesh")
+    check(bool(((a["out"] >= 0) & (a["out"] < cfg.padded_vocab)).all()),
+          f"{label} {arch}: token ids out of range")
+    check(torch.equal(a["logits"][0], b["logits"][0]),
+          f"{label} {arch}: prefill logits differ on the mesh: max "
+          f"{_abs_err(a['logits'][0], b['logits'][0])}")
+    check(torch.equal(a["out"], b["out"]),
+          f"{label} {arch}: tokens differ on the mesh")
+    rel = [_relnorm(x, y) for x, y in zip(a["logits"][1:], b["logits"][1:])]
+    bit = all(torch.equal(x, y) for x, y in zip(a["logits"], b["logits"]))
+    check(max(rel) <= MESH_SERVE_RELNORM, f"{label} {arch}: decode logits "
+          f"relnorm {max(rel)} against the run without a mesh (limit "
+          f"{MESH_SERVE_RELNORM})")
+    res = {"arch": arch, "layers": cfg.n_layers, "batch": B, "prompt": L,
+           "new": new, "params": PM.count_params(M.model_specs(cfg)),
+           "init_s": init_s, "rules": {k: list(v) for k, v in named.items()},
+           "decode_relnorm_max": max(rel), "bit_equal": bit,
+           **{tag: {k: v for k, v in r.items() if k not in ("out", "logits")}
+              for tag, r in runs.items()}}
+    for tag in ("plain", "mesh"):
+        r = res[tag]
+        say(f"  {label} {arch} {tag:5s}: prefill {r['prefill_ms']:.2f} ms, "
+            f"decode step median {r['decode_ms_median']:.3f} ms, "
+            f"{r['decode_tok_s']:.1f} decode tok/s, generate "
+            f"{r['generate_s']:.3f} s = {r['tok_s']:.1f} tok/s, peak "
+            f"{r['peak_gb']:.2f} GB, {r['flash_launches']} flash launches")
+    say(f"  {label} {arch}: {cfg.n_layers} layers, {res['params'] / 1e9:.3f}"
+        f" B params, {B} x {L} prompt tokens + {new} new; rules over the "
+        f"mesh {named}; prefill logits and tokens equal, decode logits "
+        f"{'bit-equal' if bit else f'relnorm {max(rel):.3g}'} (limit "
+        f"{MESH_SERVE_RELNORM})")
+    del params, runs, a, b
+    return res
+
+
+def mesh_serve_profile_child() -> None:
+    """Phase 16's profiled generates, in a process of its own (the card's
+    tracer records kernels in a process's first profiler session only):
+    each MESH_SERVE model on the 1x1 NCCL smoke mesh, a short warm-up
+    generate, then a generate of its prompt and PROFILE_NEW tokens under
+    the profiler (its prefill and each decode step in a ``phase:*``
+    range): device busy time and idle share, the process group's ranges
+    (``nccl:*``) and the device time launched inside them in the prefill
+    and a decode step, NCCL's device events; prints the reports as JSON
+    on its last line."""
+    import gc
+    import os
+    import tempfile
+    import torch
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.profile_serve import DEVICE_CATS, _report
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+    FK.load_library()
+    mesh = make_smoke_mesh("cuda")
+    reps = {}
+    for label, arch, n_layers, B, L, new in MESH_SERVE:
+        cfg, toks = _mesh_serve_inputs(arch, n_layers, B, L)
+        eng = Engine(cfg, ShapeSpec("serve", L + new, B, "decode"),
+                     M.init_params(cfg, CASE_SEED), mesh=mesh)
+        for name in ("prefill", "decode"):
+            _traced(eng, name, f"phase:{name}")
+        with torch.no_grad():
+            eng.generate({"tokens": toks[:, :WARM_PROMPT]}, max_new_tokens=2)
+            torch.cuda.synchronize()
+            fd, path = tempfile.mkstemp(suffix=".json")
+            os.close(fd)
+            try:
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    eng.generate({"tokens": toks}, max_new_tokens=PROFILE_NEW)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                prof.export_chrome_trace(path)
+                with open(path) as f:
+                    trace = [e for e in json.load(f)["traceEvents"]
+                             if e.get("ph") == "X"]
+            finally:
+                os.unlink(path)
+        dev = [e for e in trace if e.get("cat") in DEVICE_CATS]
+        check(len(dev) > 0, f"{label}: the profiled generate holds no "
+              "device event")
+        rep = _report(f"  {label} {arch} profiled generate on the mesh", wall,
+                      dev, 6)
+        nccl = [e["name"] for e in trace if e["name"].startswith("nccl:")]
+        spans = {ph: [(e["ts"], e["ts"] + e["dur"]) for e in trace
+                      if e.get("cat") == "user_annotation"
+                      and e["name"] == f"phase:{ph}"]
+                 for ph in ("prefill", "decode")}
+        host = [e for e in trace if e.get("cat") not in DEVICE_CATS]
+        in_phase = {ph: _correlated_ms([e for e in host if any(
+            a <= e["ts"] < b for a, b in sp)], dev, "nccl:")
+            for ph, sp in spans.items()}
+        rep.update({
+            "profiled_new": PROFILE_NEW,
+            "nccl_ranges": {n: nccl.count(n) for n in sorted(set(nccl))},
+            "nccl_range_count": len(nccl),
+            "nccl_range_ms": _correlated_ms(trace, dev, "nccl:"),
+            "nccl_prefill_ms": in_phase["prefill"],
+            "nccl_decode_ms_a_step": in_phase["decode"] / len(
+                spans["decode"]),
+            "nccl_device_events": sorted({e["name"] for e in dev
+                                          if "nccl" in e["name"].lower()}),
+            "flash_ms": sum(e["dur"] for e in dev
+                            if "flash_bf16" in e["name"]) / 1e3})
+        check(rep["nccl_range_count"] > 0 and len(spans["decode"]) ==
+              PROFILE_NEW - 1, f"{label}: no NCCL range or not "
+              f"{PROFILE_NEW - 1} decode steps in the profiled generate")
+        print(f"  {label}: process-group ranges {rep['nccl_ranges']}, "
+              f"{rep['nccl_range_ms']:.3f} ms of device time launched inside "
+              f"them (prefill {rep['nccl_prefill_ms']:.3f} ms, a decode step "
+              f"{rep['nccl_decode_ms_a_step']:.3f} ms); NCCL device events "
+              f"{rep['nccl_device_events']}; flash {rep['flash_ms']:.3f} ms",
+              flush=True)
+        reps[label] = rep
+        del eng, trace, dev
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    print(json.dumps(reps))
 
 
 # ------------------------------------------------------- phases 10-11 ---
@@ -3043,6 +3341,27 @@ def main() -> int:
     say(f"  flash_attention launches by phase: {flash_by_phase}, in all "
         f"{launches['flash_attention']}; {time.perf_counter() - t0:.2f} s")
 
+    # ---- serving on the mesh, counted per model over its mesh run -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    say(f"[16] {', '.join(f'{r[0]} {r[1]}' for r in MESH_SERVE)} at full "
+        f"width through Engine on the 1x1 NCCL mesh under the serving "
+        f"rules, each against the same engine without a mesh")
+    mesh_serving = {}
+    for row in MESH_SERVE:
+        mesh_serving[row[0]] = mesh_serve_model(*row, say)
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    flash_by_phase["16"] = {k: r["mesh"]["flash_launches"]
+                            for k, r in mesh_serving.items()}
+    launches["flash_attention"] += sum(flash_by_phase["16"].values())
+    for k, rep in mesh_profile(say, "mesh_serve_profile_child").items():
+        mesh_serving[k]["profile"] = rep
+    say(f"  flash_attention launches by phase: {flash_by_phase}, in all "
+        f"{launches['flash_attention']}; {time.perf_counter() - t0:.2f} s")
+
     replaces = {"gather_chunks": "src/repro/kernels/chunked_copy/kernel.py:37",
                 "scatter_chunks": "src/repro/kernels/chunked_copy/kernel.py:59",
                 "flash_attention":
@@ -3098,6 +3417,7 @@ def main() -> int:
                              "resharding": mesh_perm}}))
     say(json.dumps({"weight_sharding": {"training": moe_train,
                                         "reduced_worst_err": moe_reduced}}))
+    say(json.dumps({"mesh_serving": mesh_serving}))
     say(json.dumps({"chaos": {k: chaos[k] for k in (
         "faults", "fired", "retries", "failures", "recovered_stages",
         "replans", "checked", "held")}, "swap": swap}))

@@ -238,9 +238,11 @@ def sharding_for(
 
 def constrain(x, logical: tuple[str | None, ...], rules: Rules, mesh):
     """The reference's ``with_sharding_constraint``: the identity on the
-    rank's local tensor.  A constraint on this path names only the batch,
-    which the train step has already split by rows (``build_ctx`` refuses
-    rules that would need more)."""
+    rank's local tensor.  The constraints on the model's path name the
+    batch, which the train step and the engine have already split by
+    rows, and layouts the sharded bodies produce themselves; the one
+    constraint that moves data, prefill's K/V onto ``kv_seq``, is
+    ``resharding.tube_reshard``."""
     del logical, rules, mesh
     return x
 
@@ -300,7 +302,8 @@ def _steps(mesh, axes: tuple[str, ...]):
 def all_reduce_axes(t: torch.Tensor, mesh, axes: tuple[str, ...],
                     op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``t`` reduced in place over the ranks that differ only on ``axes``
-    (the reference's ``psum``/``pmax`` over a tuple of axes)."""
+    (the reference's ``psum``/``pmax`` over a tuple of axes: ``op=MAX`` is the
+    softmax maximum of flash-decoding over a sequence-sharded cache)."""
     for a in _steps(mesh, axes):
         dist.all_reduce(t, op=op,
                         group=None if a is None else mesh.get_group(a))
@@ -398,6 +401,21 @@ def reduce_scatter_dim(t: torch.Tensor, mesh, axes: tuple[str, ...],
                             group=g)
         cur = out
     return cur
+
+
+def local_chunk(t: torch.Tensor, mesh, axes: tuple[str, ...],
+                dim: int) -> torch.Tensor:
+    """This rank's chunk of ``t`` along ``dim`` split over ``axes`` (a
+    tensor the ranks of those axes hold alike): the slice ``local_slice``
+    gives, taken without a collective (the inverse of ``gather_dim``)."""
+    if not axes:
+        return t
+    n = mesh_axis_size(mesh, axes)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split {n} "
+                         f"ways over {axes}")
+    step = t.shape[dim] // n
+    return t.narrow(dim, axis_index(mesh, axes) * step, step)
 
 
 def axis_index(mesh, axes: tuple[str, ...]) -> int:

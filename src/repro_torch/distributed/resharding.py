@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.mesh import axis_sizes, coordinate
+from repro_torch.distributed.mesh import (
+    axis_sizes, coordinate, entry_axes, gather_dim, local_chunk)
 
 
 def _ring(vals: torch.Tensor, mesh, ax_name: str, s: int) -> torch.Tensor:
@@ -82,34 +83,71 @@ def single_path_permute(xb, mesh, *, shift: int = 1, primary: str = "model",
     return _ring(xb, mesh, primary, shift)
 
 
-def tube_reshard(x, src_spec, dst_spec, mesh):
-    """Layout handoff (e.g. prefill's head-major KV -> decode's
-    seq-major): this rank's shard of x, sharded over one mesh axis on one
-    dim (``src_spec``), becomes its shard of the same x sharded over the
-    same axis on another dim (``dst_spec``), by one ``all_to_all`` over
-    that axis.  The reference leaves the move to XLA; any other pair of
-    specs raises."""
-    src = [(d, p) for d, p in enumerate(src_spec) if p is not None]
-    dst = [(d, p) for d, p in enumerate(dst_spec) if p is not None]
-    if not (len(src) == len(dst) == 1 and isinstance(src[0][1], str)
-            and src[0][1] == dst[0][1] and src[0][0] != dst[0][0]):
-        raise NotImplementedError(
-            f"tube_reshard {src_spec} -> {dst_spec}: only one dim to another "
-            "over the same mesh axis is ported (ROADMAP.md §1, weight "
-            "sharding)")
-    (sd, name), (dd, _) = src[0], dst[0]
-    g = mesh.get_group(name)
+def _all_to_all(x, mesh, axis: str, src_dim: int, dst_dim: int):
+    """One ``all_to_all`` over ``axis``: ``x`` is split over ``axis`` on
+    ``src_dim`` and whole on ``dst_dim``; the result is whole on
+    ``src_dim`` and split on ``dst_dim``.  The member at place p on the
+    axis sends its chunk i of ``dst_dim`` to the member at place i and
+    puts what it gets back in place order along ``src_dim``."""
+    g = mesh.get_group(axis)
     ranks = dist.get_process_group_ranks(g)
     n = len(ranks)
-    if x.shape[dd] % n:
-        raise ValueError(f"dim {dd} of {tuple(x.shape)} does not split {n} "
-                         "ways")
-    at = mesh.mesh_dim_names.index(name)
+    if x.shape[dst_dim] % n:
+        raise ValueError(f"dim {dst_dim} of {tuple(x.shape)} does not split "
+                         f"{n} ways")
+    at = mesh.mesh_dim_names.index(axis)
     # group rank order, by coordinate on the axis
     pos = [coordinate(mesh, r)[at] for r in ranks]
-    chunks = x.chunk(n, dim=dd)
+    chunks = x.chunk(n, dim=dst_dim)
     send = [chunks[p].contiguous() for p in pos]
     recv = [torch.empty_like(send[0]) for _ in ranks]
     dist.all_to_all(recv, send, group=g)
     return torch.cat([recv[i] for i in sorted(range(n), key=pos.__getitem__)],
-                     dim=sd)
+                     dim=src_dim)
+
+
+def tube_reshard(x, src_spec, dst_spec, mesh):
+    """Layout handoff (e.g. prefill's head-major KV -> decode's
+    seq-major): this rank's shard of an array under ``src_spec`` becomes
+    its shard of the same array under ``dst_spec``.  The reference leaves
+    the move to XLA (a sharding constraint); here it is the one place a
+    K/V layout changes hands, and each mesh axis moves by the cheapest
+    means its two places allow:
+
+    - on the same dim in both specs: nothing;
+    - on a dim of ``src_spec`` only: an all-gather of that dim;
+    - on a dim of ``dst_spec`` only (every rank of the axis holds the
+      same data): a slice, no collective;
+    - from one dim to another (heads over ``model`` -> ``kv_seq`` over
+      ``model``): one ``all_to_all`` over the axis.
+
+    A destination dim split over several axes (``kv_seq`` over
+    ``(data, model)`` with the batch replicated) is cut major axis
+    first, each axis by a slice or an ``all_to_all``, which gives JAX's
+    device order (``local_slice``).  A source dim split over several
+    axes moves whole or stays; any other pair of specs raises."""
+    src = {a: d for d, p in enumerate(src_spec) for a in entry_axes(p)}
+    dst = {a: d for d, p in enumerate(dst_spec) for a in entry_axes(p)}
+    for d, p in enumerate(src_spec):
+        ax = entry_axes(p)
+        if not ax or ax == entry_axes(dst_spec[d]):
+            continue
+        gone = tuple(a for a in ax if a not in dst)
+        if gone == ax:
+            x = gather_dim(x, mesh, ax, d)
+        elif gone or len(ax) > 1:
+            raise NotImplementedError(
+                f"tube_reshard {src_spec} -> {dst_spec}: dim {d} over {ax}")
+    for d, p in enumerate(dst_spec):
+        ax = entry_axes(p)
+        if not ax or ax == entry_axes(src_spec[d]):
+            continue
+        for a in ax:                 # major first, as local_slice numbers
+            if a not in src:
+                x = local_chunk(x, mesh, (a,), d)
+            elif src[a] != d and entry_axes(src_spec[src[a]]) == (a,):
+                x = _all_to_all(x, mesh, a, src[a], d)
+            else:
+                raise NotImplementedError(
+                    f"tube_reshard {src_spec} -> {dst_spec}: {a} on dim {d}")
+    return x

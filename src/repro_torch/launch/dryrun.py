@@ -15,8 +15,8 @@ caches, inputs), computed with the port's ``spec_for``.  The reference
 also lowers and compiles each cell's step with XLA and records its
 FLOPs, traffic, collective bytes and memory analysis; the port has no
 compiler and leaves those fields out rather than estimating them.  The
-rules come from ``mesh.make_rules`` directly: ``build_ctx`` refuses to
-run what this slice does not shard, but a record needs no run.
+rules come from ``mesh.make_rules`` directly, the table ``build_ctx``
+builds its context from: a record needs no context.
 """
 from __future__ import annotations
 

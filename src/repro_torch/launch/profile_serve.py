@@ -1,7 +1,7 @@
 """Where the serving path's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--arch minicpm-2b] [--layers N] [--steps 8] [--trace PATH]
+        [--arch minicpm-2b] [--layers N] [--steps 8] [--trace PATH] [--mesh]
 
 Builds ``Engine(--arch)`` at full width in bf16 on ``cuda`` (random
 weights from a seed; ``--layers`` cuts the depth) at the shape
@@ -9,7 +9,9 @@ weights from a seed; ``--layers`` cuts the depth) at the shape
 from ``io.synthetic_batch``: an encoder-decoder's are split evenly
 between frames and tokens), warms it with one prefill and one
 decode step, then runs one prefill and ``--steps`` decode steps under
-``torch.profiler``.  For
+``torch.profiler``; with ``--mesh``, on the 1x1 NCCL smoke mesh under
+the serving rules (the sharded bodies and their collectives on groups
+of one), without it on no mesh.  For
 each phase it prints the host wall time (after a device synchronise),
 the device's busy time (the union of kernel, memcpy and memset
 intervals in the trace), the idle share, and the kernels that take most
@@ -63,6 +65,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--trace", default="chiprun_out/serve_trace.json")
+    ap.add_argument("--mesh", action="store_true",
+                    help="serve on the 1x1 NCCL smoke mesh")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_arch
@@ -78,17 +82,24 @@ def main(argv=None) -> dict:
     B, n = BATCH, args.steps
     batch = io.synthetic_batch(cfg, ShapeSpec("t", PROMPT, B, "prefill"), 0)
     L = batch["tokens"].shape[1]
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_smoke_mesh
+        mesh = make_smoke_mesh("cuda")
     eng = Engine(cfg, ShapeSpec("serve", L + n + 1, B, "decode"),
-                 M.init_params(cfg, 0, "cuda"))
+                 M.init_params(cfg, 0, "cuda"), mesh=mesh)
+    ctx = M.decode_ctx(cfg, eng.ctx, prompt_len=L, cache_len=L + n + 1,
+                       enc_len=batch["frames"].shape[1]
+                       if "frames" in batch else 0)
 
     def prefill():
         logits, caches = eng.prefill(batch)
         return torch.argmax(logits, -1)[:, None].to(torch.int32), \
-            extend_caches(cfg, caches, L + n + 1)
+            extend_caches(cfg, caches, L + n + 1, ctx=eng.ctx, from_len=L)
 
     def decode(tok, caches, steps):
         for i in range(steps):
-            logits, caches = eng.decode(caches, tok, L + i)
+            logits, caches = eng.decode(caches, tok, L + i, ctx)
             tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
         return tok
 
@@ -120,12 +131,14 @@ def main(argv=None) -> dict:
                and e["name"].startswith("phase:")}
     out = {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
            "layers": cfg.n_layers, "batch": B, "prompt_len": L,
-           "steps": n}
+           "steps": n, "mesh": args.mesh}
     for name, (a, b) in regions.items():
         evs = [e for e in dev if a <= e["ts"] < b]
         label = name if name == "prefill" else f"decode ({n} steps)"
         out[name] = _report(label, walls[name], evs, TOP)
     print(json.dumps(out))
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return out
 
 

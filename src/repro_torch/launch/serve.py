@@ -5,15 +5,23 @@ Runs batched greedy generation through ``Engine.generate`` on the card
 at the architecture's full width (``--smoke`` takes ``.reduced()``),
 and/or replays a serverless workflow trace over the port's FaaSTube
 data plane to report the tube-timed data-passing budget per request.
-The model runs on ``cuda`` unless ``--device cpu`` asks for the CPU (the
-kernels' plain versions); without a card it raises.  ``--w8a16`` rounds
-the weights through ``serving/wquant.py``'s int8 quantization first, as
-the JAX launcher does.
+As the JAX launcher does, the model is served on the smoke mesh
+(``launch/mesh.make_smoke_mesh``): 1x1, NCCL on ``cuda``, gloo on the
+CPU, under the shape's serving rules; each rank holds its slices of the
+weights.  ``--mesh DxM`` serves on a (data, model) mesh of that shape,
+one rank a process, under ``torchrun``.  The model runs on ``cuda``
+unless ``--device cpu`` asks for the CPU (the kernels' plain versions);
+without a card it raises.  ``--w8a16`` rounds the weights through
+``serving/wquant.py``'s int8 quantization first, as the JAX launcher
+does.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b \
       --smoke --device cpu --batch 4 --prompt-len 16 --max-new 8
+  OMP_NUM_THREADS=1 PYTHONPATH=src python -m torch.distributed.run \
+      --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch dbrx-132b --smoke --device cpu --batch 4 --mesh 2x2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b --w8a16
   PYTHONPATH=src python -m repro_torch.launch.serve --workflow traffic \
       --system faastube --requests 16
@@ -26,29 +34,52 @@ import torch
 
 
 def serve_model(args):
+    import torch.distributed as dist
+
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.models import model as M
+    from repro_torch.models import param as PM
     from repro_torch.serving.engine import Engine, resolve_device
 
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
     device = resolve_device(args.device)
-    params = M.init_params(cfg, 0, device)
-    if args.w8a16:
-        from repro_torch.serving.wquant import dequant_tree, quantize_tree
-        params = dequant_tree(quantize_tree(params, min_size=1024))
     shape = ShapeSpec("serve", args.prompt_len + args.max_new,
                       args.batch, "decode")
-    eng = Engine(cfg, shape, params, device=device)
-    toks = torch.arange(args.batch * args.prompt_len,
-                        dtype=torch.int32).reshape(args.batch, -1) % 64
-    out, _ = eng.generate({"tokens": toks}, max_new_tokens=args.max_new)
-    print(f"{cfg.name}: generated {tuple(out.shape)} tokens "
-          f"(batch {args.batch} x {args.max_new} new) on {eng.device}")
-    for row in out.tolist():
-        print("  ", row)
+    mesh = make_smoke_mesh(device.type, tuple(
+        int(n) for n in args.mesh.split("x")))
+    try:
+        local = PM.shard_local(M.model_specs(cfg),
+                               M.build_ctx(cfg, shape, mesh).rules, mesh)
+        if args.w8a16:
+            # the scales are the whole weights' (a column's max over every
+            # row), so quantize whole and cut after
+            from repro_torch.serving.wquant import dequant_tree, quantize_tree
+            whole = dequant_tree(quantize_tree(M.init_params(cfg, 0, device),
+                                               min_size=1024))
+            params = PM.tree_unflatten(whole, [
+                t[ix.index] for t, ix in zip(PM.tree_leaves(whole),
+                                             PM.tree_leaves(local))])
+        else:
+            params = M.init_params(cfg, 0, device, local=local)
+        eng = Engine(cfg, shape, params, device=device, mesh=mesh)
+        toks = torch.arange(args.batch * args.prompt_len,
+                            dtype=torch.int32).reshape(args.batch, -1) % 64
+        with torch.no_grad():
+            out, _ = eng.generate({"tokens": toks},
+                                  max_new_tokens=args.max_new)
+        if dist.get_rank() == 0:
+            print(f"{cfg.name}: generated {tuple(out.shape)} tokens "
+                  f"(batch {args.batch} x {args.max_new} new) on "
+                  f"{eng.device}, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                  f" ({dist.get_backend()})")
+            for row in out.tolist():
+                print("  ", row)
+    finally:
+        dist.destroy_process_group()
 
 
 def serve_workflow(args):
@@ -75,6 +106,9 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--w8a16", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM: the (data, model) mesh; more than one rank "
+                    "needs torchrun")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=8)

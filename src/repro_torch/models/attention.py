@@ -5,14 +5,19 @@ over the KV cache, and the cache update.
 ``blockwise_attention`` keeps its JAX signature and goes through
 ``kernels/flash_attention/ops.attention``: on the card the hand-written
 kernel, on the CPU its plain version.  ``decode_attention`` stays plain
-torch, as the JAX package computes it outside any Pallas kernel.
+torch, as the JAX package computes it outside any Pallas kernel; on a
+mesh whose rules split the cache's sequence (``kv_seq``),
+``sharded_decode_attention`` is its flash-decoding form, where the JAX
+package's reductions over a sharded sequence become GSPMD's psums.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.mesh import all_reduce_axes
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 NEG_INF = -1e30
@@ -137,11 +142,47 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
     return out.reshape(B, Hq, 1, D).to(q.dtype)
 
 
-def kv_update(cache, new, pos: int):
+def sharded_decode_attention(q, k_cache, v_cache, pos, *, offset: int,
+                             mesh, axes: tuple[str, ...]):
+    """``decode_attention`` over a cache whose sequence is split over the
+    mesh ``axes`` (flash-decoding): this rank holds positions
+    ``[offset, offset + S_loc)`` of every kv head, and ``q`` (B, Hq, 1,
+    D) is whole.  The rank takes the softmax of its scores under the
+    global mask; the maximum is taken over ``axes`` and each rank's
+    denominator, rescaled to it, summed over them; each rank's
+    probabilities, rescaled by its share of that sum and rounded to the
+    cache dtype as ``decode_attention`` rounds them, weight its values,
+    and the partial outputs are summed over ``axes``.  Three
+    all-reduces: the max, the denominators, the values.  Over one rank
+    the share is exactly 1, so the arithmetic is ``decode_attention``'s
+    to the bit."""
+    B, Hq, _, D = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    qg = q.reshape(B, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_cache.float()) \
+        * (1.0 / math.sqrt(D))
+    s = s.masked_fill(torch.arange(offset, offset + S, device=q.device)
+                      > pos, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    top = s.amax(dim=-1, keepdim=True)
+    m = all_reduce_axes(top.clone(), mesh, axes, op=dist.ReduceOp.MAX)
+    mine = torch.exp(s - top).sum(dim=-1, keepdim=True) * torch.exp(top - m)
+    p = p * (mine / all_reduce_axes(mine.clone(), mesh, axes))
+    out = torch.einsum("bhgk,bhkd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    out = all_reduce_axes(out.contiguous(), mesh, axes)
+    return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def kv_update(cache, new, pos: int, *, offset: int = 0):
     """Write the new token's K or V (B, Hkv, 1, D) at ``pos`` of the
     cache (B, Hkv, S, D).  Unlike the JAX package, which rewrites the
     whole cache with ``jnp.where`` to stay partition-friendly on a
     sharded sequence axis, the port writes the one slot in place and
-    returns the same tensor."""
-    cache[:, :, pos:pos + 1].copy_(new)
+    returns the same tensor.  A rank's slice of a sequence-sharded cache
+    starts at ``offset``: only the rank that holds ``pos`` writes, at its
+    local index."""
+    if offset <= pos < offset + cache.shape[2]:
+        at = pos - offset
+        cache[:, :, at:at + 1].copy_(new)
     return cache

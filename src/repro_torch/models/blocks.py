@@ -19,6 +19,16 @@ where the kv heads stay whole while the q heads split (GQA heads that
 do not divide the axes), each rank cuts the kv weights to the heads
 its q heads read, ``h // (H / KV)``, and sums their gradient over the
 axes.  FSDP's data axes are gathered first (``ModelCtx.gathered``).
+
+Serving on a mesh keeps the cache in the reference's layout, every kv
+head of the rank's rows with the sequence split over ``kv_seq``'s axes
+(the flash-decoding layout): prefill runs the kernel on the rank's
+heads and hands its K/V to that layout through
+``resharding.tube_reshard`` (kv heads kept whole are computed whole, so
+that hand-off is a slice); decode gathers q over the heads' axes,
+writes the new K/V where its position lies and merges the ranks'
+partial softmaxes (``attention.sharded_decode_attention``), then keeps
+its own heads for the row-parallel ``wo``.
 """
 from __future__ import annotations
 
@@ -30,8 +40,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, _pattern_period
 from repro_torch.distributed.mesh import (
-    Rules, axis_index, constrain, copy_to, entry_axes, gather_from,
-    mesh_axis_size, reduce_from, spec_for)
+    Rules, axis_index, constrain, copy_to, entry_axes, gather_dim,
+    gather_from, mesh_axis_size, reduce_from, spec_for)
+from repro_torch.distributed.resharding import tube_reshard
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
@@ -51,13 +62,22 @@ class ModelCtx:
     ``spec`` gives it from the weight's ``PSpec`` (global shape and
     logical axes), ``axes`` the mesh axes of one of its dims, and
     ``gathered`` makes it whole over the data axes (FSDP), leaving the
-    model axes split."""
+    model axes split.
+
+    ``batch_axes`` are the axes the rows are split over (the shape's
+    global batch under the ``batch`` rule).  ``kv_lens`` holds, for a
+    decode on a mesh, the global sequence length of each kind of cache
+    (``"full"``, ``"window"``, ``"cross"``; ``model.decode_ctx``): a
+    rank's slice alone does not say which of ``kv_seq``'s axes split
+    it."""
     cfg: ArchConfig
     rules: Rules | None = None
     mesh: Any = None
     data_axes: tuple[str, ...] = ()
     fsdp: bool = False
     batch_sharded: bool = True
+    batch_axes: tuple[str, ...] = ()
+    kv_lens: dict | None = None
 
     def cons(self, x, logical):
         if self.mesh is None:
@@ -322,13 +342,13 @@ def head_split(cfg, ctx: ModelCtx, specs: dict, prefix="") -> HeadSplit:
 
 
 def tp_weights(ctx: ModelCtx, ap: dict, specs: dict, split: HeadSplit,
-               prefix=""):
+               prefix="", cut: bool = True):
     """One attention's weights for this rank: whole over the data axes;
-    under a ``HeadSplit`` with ``kv``, the replicated kv weights cut to
-    the heads the rank reads, their gradient summed over the heads'
-    axes (each rank's covers only its heads)."""
+    under a ``HeadSplit`` with ``kv`` and ``cut``, the replicated kv
+    weights cut to the heads the rank reads, their gradient summed over
+    the heads' axes (each rank's covers only its heads)."""
     w = ctx.gathered_tree(ap, specs)
-    if split.kv is not None:
+    if split.kv is not None and cut:
         idx = list(split.kv)
         for n in (f"{prefix}wk", f"{prefix}wv"):
             w[n] = copy_to(w[n], ctx.mesh, split.axes)[:, idx]
@@ -356,21 +376,97 @@ def _mrope_at(cfg, idx):
     return attn_mod.mrope_ids_at(idx, cfg.vision_prefix)
 
 
+KV_LOGICAL = ("batch", None, "kv_seq", None)
+
+
+def _kv_layout(ctx: ModelCtx, t, seq_len: int):
+    """(spec, mesh axes of the sequence) of a K/V cache of global length
+    ``seq_len`` whose rank slice has ``t``'s rows, heads and head dim
+    (B_loc, Hkv, *, D), under the ``kv_seq`` rule."""
+    B = t.shape[0] * mesh_axis_size(ctx.mesh, ctx.batch_axes)
+    spec = spec_for((B, t.shape[1], seq_len, t.shape[3]), KV_LOGICAL,
+                    ctx.rules, ctx.mesh)
+    return spec, entry_axes(spec[2])
+
+
+def _to_cache(cfg, ctx: ModelCtx, t, heads: tuple[str, ...]):
+    """Prefill's K or V (the rank's rows; its heads split over ``heads``,
+    or whole) as the rank's slice of the decode layout (every head, the
+    sequence over ``kv_seq``'s axes), in the cache dtype."""
+    t = t.to(cfg.cache_jdtype)
+    if ctx.mesh is None:
+        return t.contiguous()
+    dst, _ = _kv_layout(ctx, t, t.shape[2])
+    part = None if not heads else heads[0] if len(heads) == 1 else heads
+    return tube_reshard(t, (dst[0], part, None, None), dst,
+                        ctx.mesh).contiguous()
+
+
+def _for_heads(split: HeadSplit, *ts):
+    """Serving computes kv heads kept whole (``HeadSplit.kv``) whole, for
+    the cache; the flash kernel reads the rank's."""
+    if split.kv is None:
+        return ts
+    return tuple(t[:, list(split.kv)] for t in ts)
+
+
+def _whole_heads(ctx: ModelCtx, split: HeadSplit, t):
+    """``t`` (B, H_loc, ...) whole over the heads' axes."""
+    if split.axes and split.kv is None:
+        return gather_dim(t, ctx.mesh, split.axes, 1)
+    return t
+
+
+def _sharded_decode(ctx, split: HeadSplit, q, k, v, cache, pos, *,
+                    kind: str):
+    """Decode attention on a mesh: the new K/V (whole over the heads)
+    written by the rank that holds ``pos`` (or its circular slot), q
+    gathered over the heads' axes, the flash-decoding merge over the
+    cache's sequence axes, and the rank's own heads of the output.  The
+    cross caches (``kind="cross"``, no ``k``/``v``, no ``pos``) are read
+    whole: every encoder position is visible."""
+    if ctx.kv_lens is None:
+        raise ValueError("decode on a mesh needs the caches' global lengths "
+                         "(model.decode_ctx)")
+    seq = ctx.kv_lens[kind]
+    names = ("ck", "cv") if kind == "cross" else ("k", "v")
+    _, axes = _kv_layout(ctx, cache[names[0]], seq)
+    S_loc = cache[names[0]].shape[2]
+    offset = axis_index(ctx.mesh, axes) * S_loc if axes else 0
+    if k is not None:
+        at = pos % seq if kind == "window" else pos
+        for name, new in zip(names, (k, v)):
+            attn_mod.kv_update(cache[name], _whole_heads(ctx, split, new)
+                               .to(cache[name].dtype), at, offset=offset)
+    eff = seq - 1 if pos is None else min(pos, seq - 1)
+    qa = gather_dim(q, ctx.mesh, split.axes, 1) if split.axes else q
+    out = attn_mod.sharded_decode_attention(
+        qa, cache[names[0]], cache[names[1]], eff, offset=offset,
+        mesh=ctx.mesh, axes=axes)
+    if not split.axes:
+        return out
+    n_loc = q.shape[1]
+    return out.narrow(1, axis_index(ctx.mesh, split.axes) * n_loc, n_loc)
+
+
 def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos, enc_out):
     B, Lq, D = x.shape
+    serving = mode != "train" and ctx.mesh is not None
     h = _norm(cfg, x, p["ln1"])
     specs = attn_specs(cfg)
     split = head_split(cfg, ctx, specs)
-    ap = tp_weights(ctx, p["attn"], specs, split)
+    ap = tp_weights(ctx, p["attn"], specs, split, cut=not serving)
     q, k, v = _proj_qkv(cfg, ap, copy_to(h, ctx.mesh, split.axes))
     q = ctx.cons(q, ("batch", "heads", "seq", None))
     new_cache = cache
+    kv_heads = split.axes if split.kv is None else ()
 
     if mode in ("train", "prefill"):
         positions = torch.arange(Lq, device=x.device)
         q, k = _rope(cfg, meta, q, k, positions)
+        kr, vr = _for_heads(split, k, v) if serving else (k, v)
         out = attn_mod.blockwise_attention(
-            q, k, v, causal=meta["causal"], window=meta["window"])
+            q, kr, vr, causal=meta["causal"], window=meta["window"])
         if mode == "prefill":
             if meta["window"]:
                 # circular-slot arrangement: token p lives at slot p % W, so
@@ -380,12 +476,13 @@ def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos, enc_out):
                 vc = torch.roll(v[:, :, Lq - w:], Lq % w, dims=2)
             else:
                 kc, vc = k, v
-            new_cache = {
-                "k": ctx.cons(kc.to(cfg.cache_jdtype).contiguous(),
-                              ("batch", None, "kv_seq", None)),
-                "v": ctx.cons(vc.to(cfg.cache_jdtype).contiguous(),
-                              ("batch", None, "kv_seq", None)),
-            }
+            new_cache = {"k": _to_cache(cfg, ctx, kc, kv_heads),
+                         "v": _to_cache(cfg, ctx, vc, kv_heads)}
+    elif serving:  # decode over the sequence-sharded cache
+        q, k = _rope(cfg, meta, q, k, torch.full((1,), pos, device=x.device))
+        out = _sharded_decode(ctx, split, q, k, v, cache, pos,
+                              kind="window" if meta["window"] else "full")
+        new_cache = cache
     else:  # decode: the cache is written in place (attention.kv_update)
         positions = torch.full((1,), pos, device=x.device)
         q, k = _rope(cfg, meta, q, k, positions)
@@ -410,10 +507,13 @@ def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos, enc_out):
         h = _norm(cfg, x, p["ln_x"])
         xspecs = attn_specs(cfg, cross=True)
         xsplit = head_split(cfg, ctx, xspecs, "c")
-        xp = tp_weights(ctx, p["xattn"], xspecs, xsplit, "c")
+        xp = tp_weights(ctx, p["xattn"], xspecs, xsplit, "c", cut=not serving)
         q = torch.einsum("bld,dhk->bhlk", copy_to(h, ctx.mesh, xsplit.axes),
                          xp["cwq"])
-        if mode == "decode":
+        if mode == "decode" and serving:
+            out = _sharded_decode(ctx, xsplit, q, None, None, cache, None,
+                                  kind="cross")
+        elif mode == "decode":
             # every encoder position is visible
             S_enc = cache["ck"].shape[2]
             out = attn_mod.decode_attention(q, cache["ck"], cache["cv"],
@@ -423,10 +523,12 @@ def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos, enc_out):
             ck = torch.einsum("bld,dhk->bhlk", enc, xp["cwk"])
             cv = torch.einsum("bld,dhk->bhlk", enc, xp["cwv"])
             if mode == "prefill":
-                new_cache = dict(new_cache,
-                                 ck=ck.to(cfg.cache_jdtype).contiguous(),
-                                 cv=cv.to(cfg.cache_jdtype).contiguous())
-            out = attn_mod.blockwise_attention(q, ck, cv, causal=False)
+                heads = xsplit.axes if xsplit.kv is None else ()
+                new_cache = dict(new_cache, ck=_to_cache(cfg, ctx, ck, heads),
+                                 cv=_to_cache(cfg, ctx, cv, heads))
+            out = attn_mod.blockwise_attention(
+                q, *(_for_heads(xsplit, ck, cv) if serving else (ck, cv)),
+                causal=False)
         y = torch.einsum("bhlk,hkd->bld", out, xp["cwo"])
         x = x + reduce_from(y, ctx.mesh, xsplit.axes)
     return x, new_cache
@@ -451,8 +553,7 @@ def apply_block(cfg, ctx: ModelCtx, kind: str, p, x, *, mode: str,
     if mixer in _RECURRENT:
         h = _norm(cfg, x, p["ln1"])
         state = cache if mode == "decode" else None
-        kw = {"ctx": ctx} if mixer == "mamba" else {}
-        y, st = _RECURRENT[mixer](h, p[mixer], cfg, state=state, **kw)
+        y, st = _RECURRENT[mixer](h, p[mixer], cfg, state=state, ctx=ctx)
         x = x + y
         new_cache = st if mode in ("prefill", "decode") else {}
     else:
@@ -466,7 +567,8 @@ def apply_block(cfg, ctx: ModelCtx, kind: str, p, x, *, mode: str,
         h = _norm(cfg, x, p["ln2"])
         y, aux_moe = moe_mod.moe_block(
             h, p["moe"], cfg, ctx.mesh, rules=ctx.rules,
-            data_axes=ctx.data_axes, batch_sharded=ctx.batch_sharded)
+            data_axes=ctx.data_axes, batch_sharded=ctx.batch_sharded,
+            batch_axes=ctx.batch_axes)
         x = x + y
         aux = aux + aux_moe
     x = ctx.cons(x, ("batch", "seq", "act_embed"))

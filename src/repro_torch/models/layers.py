@@ -6,7 +6,8 @@ Given a model context on a mesh (``blocks.ModelCtx``), the MLP, the
 embedding and the logits take each weight as the rank's slice: the MLP
 column-parallel in, row-parallel out over the ``mlp`` axes; the
 embedding vocab-parallel (each rank looks up the ids in its rows); the
-logits the rank's vocab columns only (``model.loss_fn`` reduces them).
+logits the rank's vocab columns only (``model.loss_fn`` reduces them;
+serving gathers them, ``whole_vocab``).
 FSDP's data axes are gathered first (``ModelCtx.gathered``)."""
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.mesh import (
-    axis_index, copy_to, mesh_axis_size, reduce_from)
+    axis_index, copy_to, gather_dim, mesh_axis_size, reduce_from)
 from repro_torch.models.param import PSpec
 
 
@@ -151,6 +152,15 @@ def logits_out(x, p, ctx=None):
                             _embed_weight(p, "lm_head", ctx).float())
     return torch.einsum("bsd,vd->bsv", x.float(),
                         _embed_weight(p, "table", ctx).float())
+
+
+def whole_vocab(logits, ctx=None):
+    """``logits_out``'s columns of this rank gathered over the vocab axes
+    into the whole padded row, on every rank (serving: the argmax over
+    the whole row resolves ties to the lowest id, as ``jnp.argmax``)."""
+    axes, _ = vocab_split(ctx)
+    return gather_dim(logits, ctx.mesh, axes, logits.dim() - 1) if axes \
+        else logits
 
 
 def sinusoidal_positions(length: int, d_model: int, offset: int = 0,

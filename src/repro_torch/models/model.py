@@ -18,9 +18,12 @@ each stacked leaf is split into its layers once per forward.
 On a mesh (``build_ctx``), the parameters are the rank's slices under
 the cell's rules and the blocks, the embedding and the head take the
 paths of sharded weights; ``loss_fn``'s logsumexp is then
-vocab-parallel (``_xent``).
+vocab-parallel (``_xent``), and ``prefill`` and ``decode_step`` gather
+the logits' vocab columns and keep the caches in the decode layout.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.distributed as dist
@@ -28,7 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.distributed.mesh import (
-    all_reduce_axes, data_axes, make_rules, mesh_axis_size, reduce_from)
+    all_reduce_axes, data_axes, entry_axes, local_shape, make_rules,
+    mesh_axis_size, reduce_from, spec_for)
 from repro_torch.models import layers as L
 from repro_torch.models import param as PM
 from repro_torch.models.blocks import (
@@ -47,51 +51,21 @@ from repro_torch.models.blocks import (
 from repro_torch.models.param import PSpec, stack
 
 
-#: logical axes the activation constraints (``ctx.cons``) name
-_ACT_LOGICAL = ("seq", "act_embed", "vocab", "heads", "kv_seq")
-#: the logical axes a training cell's bodies shard: TP over ``model``,
-#: FSDP over the data axes, experts over ``model``
-_SHARDED_IN_TRAINING = frozenset({
-    "batch", "heads", "kv_heads", "mlp", "vocab", "embed", "embed_mlp",
-    "experts", "expert_mlp", "state_inner"})
-
-
 def build_ctx(cfg: ArchConfig, shape: ShapeSpec | None = None,
               mesh=None) -> ModelCtx:
     """The context for one (arch, shape, mesh) cell, with the reference's
     rules.  Without a mesh: one device, no rules.
 
-    A training cell runs every rule of the table but xLSTM's ``head_v``:
-    its bodies take the path of a sharded weight wherever a spec names a
-    mesh axis, of one member too.  ``head_v`` raises
-    ``NotImplementedError`` wherever the rules give it a mesh axis, and a
-    serving shape wherever a rule but the batch's shards over an axis of
-    more than one member (``kv_seq``'s flash-decoding, the decode batch):
-    serving on a mesh is the next slice (ROADMAP.md §1)."""
+    Every cell runs, training and serving: its bodies take the path of a
+    sharded weight, cache or state wherever a spec names a mesh axis, of
+    one member too.  Serving runs prefill under the same rules as decode,
+    as the reference's ``Engine`` builds one context from its one
+    shape."""
     if mesh is None:
         return ModelCtx(cfg=cfg)
     rules = make_rules(cfg, shape, mesh)
     da = data_axes(mesh)
     dp = mesh_axis_size(mesh, da)
-    named = {n for _, p in PM.tree_leaves_with_paths(model_specs(cfg))
-             for n in p.logical} - {None}
-    if shape.is_training:
-        off = sorted((n, rules[n]) for n in named - _SHARDED_IN_TRAINING
-                     if rules.get(n))
-        if off:
-            raise NotImplementedError(
-                f"{cfg.name} {shape.name}: training has no sharded body for "
-                f"{dict(off)} (the mLSTM state's v dim; ROADMAP.md §1)")
-    else:
-        named |= set(_ACT_LOGICAL) | {
-            n for _, p in PM.tree_leaves_with_paths(cache_pspecs(cfg, shape))
-            for n in p.logical}
-        off = sorted((n, rules[n]) for n in named - {None, "batch"}
-                     if n in rules and mesh_axis_size(mesh, rules[n]) > 1)
-        if off:
-            raise NotImplementedError(
-                f"{cfg.name} {shape.name}: serving on a mesh is the next "
-                f"slice (ROADMAP.md §1); the rules shard {dict(off)}")
     return ModelCtx(
         cfg=cfg,
         rules=rules,
@@ -99,7 +73,24 @@ def build_ctx(cfg: ArchConfig, shape: ShapeSpec | None = None,
         data_axes=da,
         fsdp=shape.is_training,
         batch_sharded=shape.global_batch % dp == 0,
+        batch_axes=entry_axes(spec_for((shape.global_batch,), ("batch",),
+                                       rules, mesh)[0]),
     )
+
+
+def decode_ctx(cfg: ArchConfig, ctx: ModelCtx, *, prompt_len: int,
+               cache_len: int, enc_len: int = 0) -> ModelCtx:
+    """``ctx`` for ``decode_step`` on a mesh: with the global sequence
+    length of each kind of cache (the full caches after
+    ``extend_caches``, the circular window caches of a prefill of
+    ``prompt_len`` tokens, the cross caches of ``enc_len`` encoder
+    positions), from which a rank finds which of ``kv_seq``'s axes split
+    its slice and where it starts."""
+    if ctx.mesh is None:
+        return ctx
+    return dataclasses.replace(ctx, kv_lens={
+        "full": cache_len, "window": min(cfg.window_size, prompt_len),
+        "cross": enc_len})
 
 
 # -------------------------------------------------------------- specs ------
@@ -168,8 +159,15 @@ def cache_pspecs(cfg: ArchConfig, shape: ShapeSpec):
     return {"units": units, "rest": rest}
 
 
-def init_cache(cfg: ArchConfig, shape: ShapeSpec, device="cuda"):
-    return PM.initialize(cache_pspecs(cfg, shape), 0, device)
+def init_cache(cfg: ArchConfig, shape: ShapeSpec, device="cuda", ctx=None):
+    """Zero caches; with a ``ctx`` on a mesh, the rank's slices of them
+    (``cache_pspecs`` under the cell's rules)."""
+    specs = cache_pspecs(cfg, shape)
+    if ctx is None or ctx.mesh is None:
+        return PM.initialize(specs, 0, device)
+    return PM.tree_map(lambda p: torch.zeros(local_shape(
+        p.shape, spec_for(p.shape, p.logical, ctx.rules, ctx.mesh),
+        ctx.mesh), dtype=p.dtype, device=device), specs)
 
 
 # ----------------------------------------------------------- execution -----
@@ -363,7 +361,10 @@ def _xent(ctx, lg, tgt):
 def prefill(cfg: ArchConfig, ctx: ModelCtx, params, batch):
     """Returns (last-position logits (B, V) f32, caches).  ``batch`` holds
     ``tokens``, and ``frames`` (encoder-decoder) or ``vision_embeds``
-    (the vision prefix) where the architecture takes them."""
+    (the vision prefix) where the architecture takes them.  On a mesh,
+    ``batch`` and ``params`` are the rank's rows and slices; the logits
+    are the rank's rows of the whole padded vocab, the caches the rank's
+    slices of the decode layout (``kv_seq``)."""
     enc_out = None
     if cfg.family == "encdec":
         enc_out = _run_encoder(cfg, ctx, params, batch["frames"])
@@ -373,13 +374,14 @@ def prefill(cfg: ArchConfig, ctx: ModelCtx, params, batch):
     x, caches, _ = apply_stack(cfg, ctx, layout, params["blocks"], x,
                                mode="prefill", enc_out=enc_out)
     x = _norm(cfg, x[:, -1:], params["ln_f"])
-    logits = L.logits_out(x, params["embed"], ctx)[:, 0]
+    logits = L.whole_vocab(L.logits_out(x, params["embed"], ctx), ctx)[:, 0]
     return logits, caches
 
 
 def decode_step(cfg: ArchConfig, ctx: ModelCtx, params, caches, token, pos):
     """One decode step.  token: (B, 1) int; pos: int position.  The
-    caches are updated in place and returned."""
+    caches are updated in place and returned.  On a mesh, ``ctx`` comes
+    from ``decode_ctx``."""
     x = L.embed_lookup(token, params["embed"],
                        scale_by_dim=cfg.tie_embeddings, ctx=ctx)
     if cfg.family == "encdec":
@@ -390,5 +392,5 @@ def decode_step(cfg: ArchConfig, ctx: ModelCtx, params, caches, token, pos):
     x, new_caches, _ = apply_stack(cfg, ctx, layout, params["blocks"], x,
                                    mode="decode", caches=caches, pos=pos)
     x = _norm(cfg, x, params["ln_f"])
-    logits = L.logits_out(x, params["embed"], ctx)[:, 0]
+    logits = L.whole_vocab(L.logits_out(x, params["embed"], ctx), ctx)[:, 0]
     return logits, new_caches

@@ -14,6 +14,17 @@ transposes put them (``check_vma=False``):
     ``model``; the same ``reduce_from`` sums the partial down-projections;
   * FSDP training: the weights' ``d_model`` dim split over the data axes,
     gathered in the body (``gather_from``, reduce-scattered backward).
+  * 2-D serving: ``expert_mlp`` over the data axes as well (and
+    ``model`` for Grok-1's fallback); the one ``reduce_from`` sums over
+    experts and d_ff chunks alike.  The tokens a reduction sums over
+    must be the same on every rank of it: where the rows are split over
+    an axis that also splits the experts' d_ff (a prefill shape's batch
+    over ``data``), the rank gathers the rows over that axis first and
+    keeps its own after the sum.  The reference's ``shard_map`` splits
+    the rows over the data axes wherever the global batch divides them
+    (``batch_sharded``), also where the decode rules replicate the
+    batch, and so sums different rows' partial outputs (ROADMAP.md §3);
+    the port splits no rows the rules replicate.
 
 The body's inputs take the reference's transpose: the tokens and the
 router enter through ``copy_to``/``gather_from`` over the reduced axes,
@@ -41,7 +52,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.mesh import (
     all_reduce_axes, axis_index, copy_to, entry_axes, gather_from,
-    mesh_axis_size, reduce_from, spec_axes, spec_for)
+    local_chunk, mesh_axis_size, reduce_from, spec_axes, spec_for)
 from repro_torch.models.param import PSpec
 
 
@@ -74,11 +85,11 @@ def _expert_ffn(x, wp, mlp_type: str):
 
 
 def moe_block(x, p, cfg: ArchConfig, mesh=None, *, rules=None,
-              data_axes: tuple[str, ...] = (), batch_sharded: bool = True):
-    """x: (B, S, D), the rank's rows -> (out (B, S, D) in x's dtype, aux
-    f32 scalar)."""
+              data_axes: tuple[str, ...] = (), batch_sharded: bool = True,
+              batch_axes: tuple[str, ...] = ()):
+    """x: (B, S, D), the rank's rows, split over ``batch_axes`` -> (out
+    (B, S, D) in x's dtype, aux f32 scalar)."""
     E, k = cfg.n_experts, cfg.top_k
-    B, S, D = x.shape
     specs = moe_specs(cfg)
 
     def spec(name):
@@ -88,6 +99,9 @@ def moe_block(x, p, cfg: ArchConfig, mesh=None, *, rules=None,
         return spec_for(ps.shape, ps.logical, rules, mesh)
     e_axes, d_axes, f_axes = map(entry_axes, spec(_wnames(cfg)[0]))
     red = tuple(dict.fromkeys(e_axes + f_axes))
+    rows = tuple(a for a in batch_axes if a in red)
+    x = gather_from(x, mesh, rows, 0)
+    B, S, D = x.shape
     e_loc = E // (mesh_axis_size(mesh, e_axes) if e_axes else 1)
 
     # the body's inputs: the tokens, with their gradient summed over the
@@ -147,8 +161,8 @@ def moe_block(x, p, cfg: ArchConfig, mesh=None, *, rules=None,
     out = weighted[:, 0]
     for j in range(1, k):
         out = out + weighted[:, j]
-    out = reduce_from(out, mesh, red)
-    return out.reshape(B, S, D).to(x.dtype), aux
+    out = reduce_from(out, mesh, red).reshape(B, S, D).to(x.dtype)
+    return local_chunk(out, mesh, rows, 0), aux
 
 
 def _shard_mean(aux, mesh, axes: tuple[str, ...], n_red: int):

@@ -14,6 +14,18 @@ the sums as the reference does.  The ``lax.scan`` over chunks (and for
 sLSTM over steps) becomes a Python loop; in training the model
 checkpoints each pattern unit (``model.apply_stack``), not each chunk.
 Decode is the Q = 1 case of the same chunk function.
+
+On a mesh (``ctx``), the mLSTM is tensor-parallel as the reference's
+specs lay it out: ``up_x`` is column-parallel over the ``mlp`` axes,
+and ``wq``, ``wk``, ``w_i`` and ``w_f`` contract over the split
+``d_inner`` (one ``reduce_from`` of the four partial sums a chunk, then
+``copy_to`` into the work the ``head_v`` axes split); ``up_z``, ``wv``
+and the C state's v dim split over ``head_v`` (``wv`` reads the
+inner activations gathered over ``mlp``), so the chunk's products and
+its state update stay on the rank, and ``out`` is row-parallel over
+``head_v``.  The sLSTM's FFN is column-parallel in and row-parallel out
+over ``mlp``; its recurrence is replicated.  FSDP's data axes are
+gathered first (``ModelCtx.gathered``).
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.mesh import copy_to, gather_from, reduce_from
 from repro_torch.models.param import PSpec
 
 NEG = -1e30
@@ -112,37 +125,70 @@ def _mlstm_chunk(q, k, v, a, b, state):
     return h, {"C": C, "n": n, "m": m_next}
 
 
-def mlstm_forward(x, p, cfg: ArchConfig, *, chunk: int = 256, state=None):
+def _tp_axes(ctx, specs: dict, mlp: str, head_v: str | None = None):
+    """(mesh, the ``mlp`` axes of ``specs[mlp]``'s last dim, the
+    ``head_v`` axes of ``specs[head_v]``'s) on a mesh, with FSDP's
+    data axes of the weights gathered by the caller."""
+    if ctx is None or ctx.mesh is None:
+        return None, (), ()
+    m = ctx.axes(specs[mlp], len(specs[mlp].shape) - 1)
+    hv = () if head_v is None else ctx.axes(specs[head_v], 2)
+    if head_v is not None and m and m != hv:
+        raise NotImplementedError(
+            f"xLSTM: mlp over {m} and head_v over {hv}: the gather of the "
+            "inner activations would sum v's gradient over other axes")
+    return ctx.mesh, m, hv
+
+
+def mlstm_forward(x, p, cfg: ArchConfig, *, chunk: int = 256, state=None,
+                  ctx=None):
     """x: (B, L, D) -> (y, state).  A given ``state`` has its C and n
     updated in place: at decode they are the cache's own tensors, 5.6 GB
-    for xLSTM-1.3B at batch 8, so no step copies them."""
+    for xLSTM-1.3B at batch 8, so no step copies them.  With a ``ctx`` on
+    a mesh, ``p`` holds the rank's slices and C its v columns (module
+    docstring)."""
     B, L, D = x.shape
     H = cfg.n_heads
-    dh = cfg.d_inner // H
+    specs = mlstm_specs(cfg)
+    if ctx is not None and ctx.mesh is not None:
+        p = ctx.gathered_tree(p, specs)
+    mesh, m_axes, hv_axes = _tp_axes(ctx, specs, "up_x", "wv")
+    dh, dv = p["wq"].shape[2], p["wv"].shape[2]
 
     if state is None:
         f32 = dict(dtype=torch.float32, device=x.device)
-        state = {"C": torch.zeros((B, H, dh, dh), **f32),
+        state = {"C": torch.zeros((B, H, dh, dv), **f32),
                  "n": torch.zeros((B, H, dh), **f32),
                  "m": torch.zeros((B, H), **f32)}
 
     def proj(x_c):
-        xi = x_c @ p["up_x"]                                 # (B,Q,din)
-        z = torch.einsum("bqd,dhe->bqhe", x_c, p["up_z"])
-        q = torch.einsum("bqi,ihd->bhqd", xi, p["wq"])
-        k = torch.einsum("bqi,ihd->bhqd", xi, p["wk"])
-        v = torch.einsum("bqi,ihd->bhqd", xi, p["wv"])      # (B,H,Q,dh_v)
-        a = F.logsigmoid(
-            (torch.einsum("bqi,ih->bhq", xi, p["w_f"])
-             + p["b_f"][None, :, None]).float())
-        b = (torch.einsum("bqi,ih->bhq", xi, p["w_i"])
-             + p["b_i"][None, :, None]).float()
-        return q, k, v, a, b, z
+        xi = copy_to(x_c, mesh, m_axes) @ p["up_x"]          # (B,Q,din_loc)
+        z = torch.einsum("bqd,dhe->bqhe", copy_to(x_c, mesh, hv_axes),
+                         p["up_z"])
+        parts = (torch.einsum("bqi,ihd->bhqd", xi, p["wq"]),
+                 torch.einsum("bqi,ihd->bhqd", xi, p["wk"]),
+                 torch.einsum("bqi,ih->bhq", xi, p["w_f"])[..., None],
+                 torch.einsum("bqi,ih->bhq", xi, p["w_i"])[..., None])
+        if m_axes:
+            # the contractions over the split d_inner, summed in one
+            whole = reduce_from(torch.cat(parts, dim=-1), mesh, m_axes)
+            parts = whole.split([t.shape[-1] for t in parts], dim=-1)
+        q, k, f_, i_ = parts
+        # whole from here, entering the work the head_v axes split
+        q, k, f_, i_ = (copy_to(t, mesh, hv_axes) for t in (
+            q, k, f_[..., 0] + p["b_f"][None, :, None],
+            i_[..., 0] + p["b_i"][None, :, None]))
+        # wv reads every inner channel: xi gathered over the mlp axes
+        v = torch.einsum("bqi,ihd->bhqd", gather_from(xi, mesh, m_axes, 2)
+                         if m_axes else copy_to(xi, mesh, hv_axes), p["wv"])
+        return q, k, v, F.logsigmoid(f_.float()), i_.float(), z
 
     def readout(h, z):
-        """h: (B,H,Q,dh_v), z: (B,Q,H,dh_v) -> (B,Q,D)."""
+        """h: (B,H,Q,dh_v), z: (B,Q,H,dh_v) -> (B,Q,D), summed over the
+        ``head_v`` axes."""
         y = h.to(z.dtype).permute(0, 2, 1, 3) * F.silu(z)
-        return torch.einsum("bqhe,hed->bqd", y, p["out"])
+        return reduce_from(torch.einsum("bqhe,hed->bqd", y, p["out"]), mesh,
+                           hv_axes)
 
     Q = min(chunk, L)
     if L % Q:
@@ -211,12 +257,19 @@ def _slstm_step(p, st, gx_t, rt=None):
     return {"c": c, "n": n, "h": h, "m": m_new}
 
 
-def slstm_forward(x, p, cfg: ArchConfig, *, chunk: int = 64, state=None):
+def slstm_forward(x, p, cfg: ArchConfig, *, chunk: int = 64, state=None,
+                  ctx=None):
     """x: (B, L, D) -> (y, state).  Strictly sequential recurrence; the
     reference's chunks of 64 only bound its backward memory, so the port
     steps through the sequence in one loop.  ``chunk`` is kept for the
-    reference's signature and only checks that L is a multiple of it."""
+    reference's signature and only checks that L is a multiple of it.
+    With a ``ctx`` on a mesh, the FFN's weights are the rank's slices
+    over ``mlp`` (module docstring)."""
     B, L, D = x.shape
+    specs = slstm_specs(cfg)
+    if ctx is not None and ctx.mesh is not None:
+        p = ctx.gathered_tree(p, specs)
+    mesh, m_axes, _ = _tp_axes(ctx, specs, "ffn_up")
     H = cfg.n_heads
     dh = D // H
 
@@ -235,5 +288,6 @@ def slstm_forward(x, p, cfg: ArchConfig, *, chunk: int = 64, state=None):
         hs.append(state["h"])
     y = torch.stack(hs, dim=1).reshape(B, L, H * dh).to(x.dtype)
     # post-up-projection FFN (sLSTM block style)
+    y = copy_to(y, mesh, m_axes)
     h2 = F.silu(y @ p["ffn_gate"]) * (y @ p["ffn_up"])
-    return h2 @ p["ffn_down"], state
+    return reduce_from(h2 @ p["ffn_down"], mesh, m_axes), state

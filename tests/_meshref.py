@@ -46,6 +46,31 @@ TP_SEQ = 32
 #: tokens, ``aux`` a mean of per-shard losses) differ from one device's
 TP_MOE = ("dbrx_2x2", "grok_1x8", "jamba_2x2")
 
+#: the serving scenarios: (name, arch, mesh shape, global batch, prompt
+#: tokens), each served through ``Engine.generate`` on its (data, model)
+#: mesh under the decode rules: SERVE_NEW tokens, caches of SERVE_CACHE
+SERVE_SCENARIOS = (
+    ("qwen72_1x4", "qwen2-72b", (1, 4), 2, 16),
+    ("nemotron_2x2", "nemotron-4-15b", (2, 2), 2, 16),
+    ("dbrx_2x2", "dbrx-132b", (2, 2), 4, 16),
+    ("grok_1x8", "grok-1-314b", (1, 8), 4, 12),
+    ("gemma3_2x2", "gemma3-27b", (2, 2), 2, 16),
+    ("jamba_2x2", "jamba-1.5-large-398b", (2, 2), 4, 16),
+    ("xlstm_1x4", "xlstm-1.3b", (1, 4), 2, 16),
+)
+SERVE_NEW, SERVE_CACHE = 8, 32
+#: the scenarios where the reference's MoE ``shard_map`` splits rows the
+#: decode rules replicate and sums different rows' partial outputs
+#: (ROADMAP.md §3): the reference also runs them on a 1x1 mesh
+SERVE_REF_FAULT = ("dbrx_2x2", "jamba_2x2")
+#: the training step of the serving scenario whose arch had no training
+#: body on a mesh before (xLSTM's head_v): a TP_SCENARIOS-like entry
+SERVE_TRAIN = ("xlstm_1x4", "xlstm-1.3b", (1, 4), ("data", "model"), 2)
+#: the cross-attention block served alone (no config builds ``dec_attn``):
+#: Whisper-medium reduced on (2, 2), 2 rows, prompt, encoder and cache
+#: lengths
+XSERVE = ((2, 2), 2, 16, 16, 32)
+
 #: local_slice cases: (mesh shape, axis names, global shape, spec)
 SLICE_CASES = (
     ((2, 2), ("data", "model"), (8, 12), (("data", "model"), None)),
@@ -58,6 +83,18 @@ SLICE_CASES = (
     ((2, 1, 2), ("pod", "data", "model"), (8, 4, 6),
      (("pod", "model"), None, "data")),
     ((2, 1, 2), ("pod", "data", "model"), (8, 4, 6), ("model", "pod", None)),
+)
+
+
+#: ``tube_reshard`` handoffs of a 16 x 4 tensor on a (2, 2) mesh, as the
+#: serving rules produce them: (source spec, destination spec)
+TUBE_CASES = (
+    (("model", None), ("data", None)),
+    (("model", None), (None, ("data", "model"))),
+    ((None, "model"), (("data", "model"), None)),
+    ((None, None), (None, "model")),
+    (("model", None), ("model", None)),
+    (("data", "model"), (None, None)),
 )
 
 
@@ -223,6 +260,16 @@ def tp(inputs, out):
     the same function: the mean over the batch rows of one row's gradient
     on a 1x1 mesh (every (microbatch, data shard) of the step holds one
     row, and a shard's capacity and balance loss are its own)."""
+    data = np.load(inputs)
+    for name, arch, mshape, axes, gb in TP_SCENARIOS:
+        np.savez(Path(out) / f"tp_{name}.npz",
+                 **_tp_cell(name, arch, mshape, axes, gb, data))
+    xattn(data, out)
+
+
+def _tp_cell(name, arch, mshape, axes, gb, data) -> dict:
+    """One weight-sharding scenario's jitted step (``tp``): the loss, the
+    gradients, the new state, and the same without sharding."""
     import jax
     import jax.numpy as jnp
 
@@ -241,8 +288,7 @@ def tp(inputs, out):
         p, o, m = update(oc, params, grads, opt_state)
         return p, o, dict(m, grads=grads)
     TS.adamw_update = with_grads
-    data = np.load(inputs)
-    for name, arch, mshape, axes, gb in TP_SCENARIOS:
+    try:
         cfg = dataclasses.replace(get_arch(arch).reduced(), cache_dtype="f32")
         mesh = _mesh(mshape, axes)
         shape = ShapeSpec("t", TP_SEQ, gb, "train")
@@ -285,8 +331,9 @@ def tp(inputs, out):
                                       batch.items()}) for r in range(gb)]
             res.update(_keyed("unsharded_grads", jax.tree.map(
                 lambda *g: sum(g) / gb, *rows)))
-        np.savez(Path(out) / f"tp_{name}.npz", **res)
-    xattn(data, out)
+    finally:
+        TS.adamw_update = update
+    return res
 
 
 #: the cross-attention block (``dec_attn``, which no architecture's
@@ -327,6 +374,120 @@ def xattn(data, out):
             params, data["xattn/x"], data["xattn/enc"])
     np.savez(Path(out) / "xattn.npz", x=np.asarray(gx), enc=np.asarray(ge),
              **_keyed("grads", gp))
+
+
+def serve(inputs, out):
+    """Each serving scenario through the reference's ``Engine.generate``
+    on its mesh of host devices, from the weights and prompts the tests
+    made, in f32 (caches too): the tokens, the prefill's and every decode
+    step's logits, and the final caches; the fault scenarios again on a
+    1x1 mesh.  Then ``moe_block`` alone under DBRX's decode rules (the
+    fault's cause), the cross-attention block served alone, and
+    ``SERVE_TRAIN``'s step."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeSpec
+    from repro.models import model as M
+    from repro.serving.engine import Engine
+
+    data = np.load(inputs)
+    for name, arch, mshape, B, _ in SERVE_SCENARIOS:
+        cfg = dataclasses.replace(get_arch(arch).reduced(), cache_dtype="f32")
+        params = _from_keyed(M.model_specs(cfg), f"{name}/params", data)
+        toks = jnp.asarray(data[f"{name}/tokens"])
+        res = {}
+        meshes = [("", mshape)] + ([("one_", (1, 1))]
+                                   if name in SERVE_REF_FAULT else [])
+        for tag, ms in meshes:
+            eng = Engine(cfg, ShapeSpec("serve", SERVE_CACHE, B, "decode"),
+                         _mesh(ms, ("data", "model")), params)
+            logits = []
+            for fn in ("_prefill", "_decode"):
+                def rec(*a, _f=getattr(eng, fn)):
+                    lg, c = _f(*a)
+                    logits.append(np.asarray(lg))
+                    return lg, c
+                setattr(eng, fn, rec)
+            tokens, caches = eng.generate({"tokens": toks}, SERVE_NEW,
+                                          SERVE_CACHE)
+            res.update({f"{tag}tokens": np.asarray(tokens),
+                        **{f"{tag}logits_{i}": lg
+                           for i, lg in enumerate(logits)},
+                        **_keyed(f"{tag}caches", caches)})
+        np.savez(Path(out) / f"serve_{name}.npz", **res)
+    moe_rows(data, out)
+    xserve(data, out)
+    np.savez(Path(out) / "serve_train.npz", **_tp_cell(*SERVE_TRAIN, data))
+
+
+def moe_rows(data, out):
+    """The reference's ``moe_block`` under DBRX's decode rules on (2, 2)
+    (experts over ``model``, ``expert_mlp`` over ``data``, the batch
+    replicated), with ``batch_sharded`` as ``build_ctx`` sets it (True:
+    4 rows divide the data axis) and False, and on a 1x1 mesh."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeSpec
+    from repro.models import model as M
+    from repro.models import moe
+    from repro.models import param as PM
+
+    cfg = dataclasses.replace(get_arch("dbrx-132b").reduced(),
+                              cache_dtype="f32")
+    x = jnp.asarray(data["moe_rows/x"])
+    p = _from_keyed(moe.moe_specs(cfg), "moe_rows/params", data)
+    res = {}
+    for tag, ms, sharded in (("split", (2, 2), True),
+                             ("whole", (2, 2), False), ("one", (1, 1), True)):
+        mesh = _mesh(ms, ("data", "model"))
+        ctx = M.build_ctx(cfg, ShapeSpec("s", SERVE_CACHE, x.shape[0],
+                                         "decode"), mesh)
+        p_shd = PM.shardings(moe.moe_specs(cfg), ctx.rules, mesh)
+        with jax.set_mesh(mesh):
+            y, _ = jax.jit(lambda p_, x_: moe.moe_block(
+                x_, p_, cfg, mesh, rules=ctx.rules, data_axes=ctx.data_axes,
+                batch_sharded=sharded), in_shardings=(p_shd, None))(p, x)
+        res[tag] = np.asarray(y)
+        res[f"{tag}_batch_sharded"] = np.asarray(ctx.batch_sharded)
+    np.savez(Path(out) / "moe_rows.npz", **res)
+
+
+def xserve(data, out):
+    """The ``dec_attn`` block served alone on XSERVE's mesh under the
+    decode rules: its prefill over the prompt and the encoder output,
+    the self-attention caches padded to the cache length, one decode
+    step; both outputs and the caches."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeSpec
+    from repro.models import blocks as B
+    from repro.models import model as M
+    from repro.serving.engine import _pad_seq
+
+    mshape, rows, L, _, T = XSERVE
+    cfg = dataclasses.replace(get_arch("whisper-medium").reduced(),
+                              cache_dtype="f32")
+    mesh = _mesh(mshape, ("data", "model"))
+    ctx = M.build_ctx(cfg, ShapeSpec("s", T, rows, "decode"), mesh)
+    kind = "dec_attn/dense"
+    params = _from_keyed(B.block_specs(cfg, kind), "xserve/params", data)
+    x, enc, xt = (jnp.asarray(data[f"xserve/{k}"]) for k in ("x", "enc",
+                                                               "xt"))
+    with jax.set_mesh(mesh):
+        y, c, _ = jax.jit(lambda p, x_, e: B.apply_block(
+            cfg, ctx, kind, p, x_, mode="prefill", enc_out=e))(params, x, enc)
+        c = dict(c, k=_pad_seq(c["k"], T), v=_pad_seq(c["v"], T))
+        yd, c, _ = jax.jit(lambda p, c_, t: B.apply_block(
+            cfg, ctx, kind, p, t, mode="decode", cache=c_, pos=L))(
+            params, c, xt)
+    np.savez(Path(out) / "xserve.npz", y=np.asarray(y), y_decode=np.asarray(yd),
+             **{f"cache__{k}": np.asarray(v) for k, v in c.items()})
 
 
 def compression(inputs, out):
@@ -406,5 +567,6 @@ def resharding(inputs, out):
 
 if __name__ == "__main__":
     sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
-    {"mesh_facts": mesh_facts, "dp": dp, "tp": tp, "compression": compression,
+    {"mesh_facts": mesh_facts, "dp": dp, "tp": tp, "serve": serve,
+     "compression": compression,
      "resharding": resharding}[sys.argv[1]](sys.argv[2], sys.argv[3])

@@ -188,6 +188,45 @@ def tp_state(name, arch, mshape, axes, gb, mesh, init):
     return cfg, shape, ctx, params, opt, tree_shd
 
 
+def tp_step(name, arch, mshape, axes, gb, init, path):
+    """One weight-sharding scenario's step on its mesh from the tests'
+    weights and batch, the gradients read at ``adamw_update``; rank 0
+    writes the loss and the gathered gradients, parameters and moments to
+    ``path``.  Returns (the rank's new parameters and moments, the tree
+    shardings)."""
+    import torch.distributed as dist
+
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as TS
+
+    update, seen = TS.adamw_update, []
+
+    def with_grads(oc, params, grads, opt_state, *shardings):
+        seen.append(grads)
+        return update(oc, params, grads, opt_state, *shardings)
+    TS.adamw_update = with_grads
+    try:
+        mesh = _mesh(mshape, axes)
+        cfg, shape, ctx, params, opt, tree_shd = tp_state(
+            name, arch, mshape, axes, gb, mesh, init)
+        step = TS.build_train_step(cfg, ctx, O.OptConfig(
+            schedule=cfg.lr_schedule), TS.default_accum(shape, mesh, cfg))
+        batch = {k.split("/")[-1]: torch_from(init[k]) for k in init.files
+                 if k.startswith(f"{name}/batch/")}
+        params, opt, m = step(params, opt, batch)
+    finally:
+        TS.adamw_update = update
+    whole = CKPT.gathered({"grads": seen.pop(), "params": params, "opt": opt},
+                          dict(tree_shd, grads=tree_shd["params"]))
+    if dist.get_rank() == 0:
+        np.savez(path, loss=m["loss"].numpy(),
+                 **_keyed("grads", whole["grads"]),
+                 **_keyed("new_params", whole["params"]),
+                 **_keyed("new_opt", whole["opt"]))
+    return params, opt, tree_shd
+
+
 def tp(ref_dir, out):
     """Each weight-sharding scenario whose mesh spans this world: one step
     from the tests' weights and batch, the gradients read at
@@ -200,37 +239,15 @@ def tp(ref_dir, out):
 
     from repro_torch.models import param as PM
     from repro_torch.training import checkpoint as CKPT
-    from repro_torch.training import optimizer as O
-    from repro_torch.training import train_step as TS
 
     dist.init_process_group("gloo")
     rank, world = dist.get_rank(), dist.get_world_size()
     init = np.load(Path(out) / "tp_inputs.npz")
-    update, seen = TS.adamw_update, []
-
-    def with_grads(oc, params, grads, opt_state, *shardings):
-        seen.append(grads)
-        return update(oc, params, grads, opt_state, *shardings)
-    TS.adamw_update = with_grads
     for name, arch, mshape, axes, gb in TP_SCENARIOS:
         if int(np.prod(mshape)) != world:
             continue
-        mesh = _mesh(mshape, axes)
-        cfg, shape, ctx, params, opt, tree_shd = tp_state(
-            name, arch, mshape, axes, gb, mesh, init)
-        step = TS.build_train_step(cfg, ctx, O.OptConfig(
-            schedule=cfg.lr_schedule), TS.default_accum(shape, mesh, cfg))
-        batch = {k.split("/")[-1]: torch_from(init[k]) for k in init.files
-                 if k.startswith(f"{name}/batch/")}
-        params, opt, m = step(params, opt, batch)
-        whole = CKPT.gathered({"grads": seen.pop(), "params": params,
-                               "opt": opt},
-                              dict(tree_shd, grads=tree_shd["params"]))
-        if rank == 0:
-            np.savez(Path(out) / f"tp_{name}.npz", loss=m["loss"].numpy(),
-                     **_keyed("grads", whole["grads"]),
-                     **_keyed("new_params", whole["params"]),
-                     **_keyed("new_opt", whole["opt"]))
+        params, opt, tree_shd = tp_step(name, arch, mshape, axes, gb, init,
+                                        Path(out) / f"tp_{name}.npz")
         if name != "nemotron_2x2":
             continue
         CKPT.save(Path(out) / "tp_ckpt", 1, {"params": params, "opt": opt},
@@ -299,6 +316,119 @@ def xattn(init, out, rank):
                  **_keyed("grads", whole))
 
 
+def serve(ref_dir, out):
+    """Each serving scenario whose mesh spans this world through
+    ``Engine.generate`` on the rank's slices of the tests' weights, with
+    the global prompt on every rank; rank 0 writes the tokens, the
+    prefill's and each decode step's logits gathered over the rows, and
+    the caches gathered from the ranks (whose slices have the shapes of
+    ``init_cache``'s).  On 4 ranks also the
+    cross-attention block served alone (``XSERVE``); on the ranks of
+    ``SERVE_TRAIN``'s mesh its training step."""
+    import torch
+    import torch.distributed as dist
+    from _meshref import (SERVE_CACHE, SERVE_NEW, SERVE_SCENARIOS,
+                          SERVE_TRAIN, XSERVE)
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.mesh import gather_dim
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.serving.engine import Engine
+    from repro_torch.training import checkpoint as CKPT
+
+    dist.init_process_group("gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    init = np.load(Path(out) / "serve_inputs.npz")
+    for name, arch, mshape, B, _ in SERVE_SCENARIOS:
+        if int(np.prod(mshape)) != world:
+            continue
+        mesh = _mesh(mshape, ("data", "model"))
+        cfg = dataclasses.replace(get_arch(arch).reduced(), cache_dtype="f32")
+        shape = ShapeSpec("serve", SERVE_CACHE, B, "decode")
+        ctx = M.build_ctx(cfg, shape, mesh)
+        pspecs = M.model_specs(cfg)
+        params = PM.from_numpy(_tree(pspecs, f"{name}/params", init), "cpu",
+                               PM.shard_local(pspecs, ctx.rules, mesh))
+        eng = Engine(cfg, shape, params, device="cpu", mesh=mesh)
+        logits = []
+        for fn in ("prefill", "decode"):
+            def rec(*a, _f=getattr(eng, fn)):
+                lg, c = _f(*a)
+                logits.append(gather_dim(lg, mesh, ctx.batch_axes, 0)
+                              if ctx.batch_axes else lg)
+                return lg, c
+            setattr(eng, fn, rec)
+        with torch.no_grad():
+            tokens, caches = eng.generate(
+                {"tokens": init[f"{name}/tokens"]}, SERVE_NEW, SERVE_CACHE)
+        zero = M.init_cache(cfg, shape, "cpu", ctx)
+        assert [t.shape for t in PM.tree_leaves(zero)] == [
+            t.shape for t in PM.tree_leaves(caches)], name
+        whole = CKPT.gathered(caches, PM.shardings(
+            M.cache_pspecs(cfg, shape), ctx.rules, mesh))
+        if rank == 0:
+            np.savez(Path(out) / f"serve_{name}.npz", tokens=tokens.numpy(),
+                     **{f"logits_{i}": lg.numpy()
+                        for i, lg in enumerate(logits)},
+                     **_keyed("caches", whole))
+    if world == int(np.prod(XSERVE[0])):
+        with torch.no_grad():
+            xserve(init, out, rank)
+    name, arch, mshape, axes, gb = SERVE_TRAIN
+    if world == int(np.prod(mshape)):
+        tp_step(name, arch, mshape, axes, gb, init,
+                Path(out) / "serve_train.npz")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def xserve(init, out, rank):
+    """``_meshref.xserve`` on this rank: its rows, its slices of the
+    block's weights, the caches padded by ``engine._pad_sharded``; rank 0
+    writes both outputs gathered over the rows and the caches gathered
+    from the ranks."""
+    from _meshref import XSERVE
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.mesh import (
+        coordinate, gather_dim, local_slice, sharding_for)
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.serving.engine import _pad_sharded
+    from repro_torch.training import checkpoint as CKPT
+
+    mshape, rows, L, E, T = XSERVE
+    cfg = dataclasses.replace(get_arch("whisper-medium").reduced(),
+                              cache_dtype="f32")
+    mesh = _mesh(mshape, ("data", "model"))
+    ctx = M.build_ctx(cfg, ShapeSpec("s", T, rows, "decode"), mesh)
+    kind = "dec_attn/dense"
+    specs = B.block_specs(cfg, kind)
+    p = PM.from_numpy(_tree(specs, "xserve/params", init), "cpu",
+                      PM.shard_local(specs, ctx.rules, mesh))
+    x, enc, xt = (torch_from(init[f"xserve/{k}"][local_slice(
+        init[f"xserve/{k}"].shape, (ctx.batch_axes or None, None, None),
+        mesh, coordinate(mesh))]) for k in ("x", "enc", "xt"))
+    y, c, _ = B.apply_block(cfg, ctx, kind, p, x, mode="prefill",
+                            enc_out=enc)
+    c = dict(c, k=_pad_sharded(ctx, c["k"], L, T),
+             v=_pad_sharded(ctx, c["v"], L, T))
+    dctx = M.decode_ctx(cfg, ctx, prompt_len=L, cache_len=T, enc_len=E)
+    yd, c, _ = B.apply_block(cfg, dctx, kind, p, xt, mode="decode", cache=c,
+                             pos=L)
+    shapes = B.block_cache_shapes(cfg, kind, rows, T, E)
+    whole = CKPT.gathered(c, {k: sharding_for(shp, lg, ctx.rules, mesh)
+                              for k, (shp, _, lg) in shapes.items()})
+    y, yd = (gather_dim(t, mesh, ctx.batch_axes, 0) for t in (y, yd))
+    if rank == 0:
+        np.savez(Path(out) / "xserve.npz", y=y.numpy(), y_decode=yd.numpy(),
+                 **{f"cache__{k}": v.numpy() for k, v in whole.items()})
+
+
 def torch_from(a):
     import torch
     return torch.from_numpy(np.ascontiguousarray(a))
@@ -343,6 +473,7 @@ def resharding(ref_dir, out):
     shards."""
     import torch
     import torch.distributed as dist
+    from _meshref import TUBE_CASES
 
     from repro_torch.distributed.mesh import local_slice
     from repro_torch.distributed.resharding import (
@@ -359,6 +490,9 @@ def resharding(ref_dir, out):
         res[f"multi_{frac}"] = multipath_permute(xb, mesh, detour_frac=frac)
     yb = y[local_slice(tuple(y.shape), ("model", None), mesh, coord)]
     res["tube"] = tube_reshard(yb, ("model", None), (None, "model"), mesh)
+    for i, (src, dst) in enumerate(TUBE_CASES):
+        res[f"tube_{i}"] = tube_reshard(
+            y[local_slice(tuple(y.shape), src, mesh, coord)], src, dst, mesh)
     np.savez(Path(out) / f"resharding_rank{dist.get_rank()}.npz",
              coord=np.array(coord), **{k: v.numpy() for k, v in res.items()})
     dist.barrier()
@@ -367,6 +501,6 @@ def resharding(ref_dir, out):
 
 if __name__ == "__main__":
     sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
-    {"dp": dp, "restore_1x2": restore_1x2, "tp": tp,
+    {"dp": dp, "restore_1x2": restore_1x2, "tp": tp, "serve": serve,
      "compression": compression,
      "resharding": resharding}[sys.argv[1]](sys.argv[2], sys.argv[3])

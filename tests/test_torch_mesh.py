@@ -162,19 +162,20 @@ def test_degraded_mesh_refuses_too_many_failures():
 
 
 def test_build_ctx_refuses_weight_sharding():
-    """Weight sharding is refused where the port has no sharded body yet:
-    serving cells and xLSTM's ``head_v`` (``tests/test_torch_tp.py``
-    walks every cell).  DBRX's training rules (experts, FSDP ``embed``)
+    """No cell is refused: a serving cell builds with the serving rules
+    (``kv_seq`` over ``model``, the rows over ``data``), xLSTM's
+    ``head_v`` trains; DBRX's training rules (experts, FSDP ``embed``)
     build; the small-dense MiniCPM cell on the same mesh splits only the
-    batch."""
+    batch (``tests/test_torch_tp.py`` walks every cell)."""
     m = SimpleNamespace(shape=(2, 2), mesh_dim_names=("data", "model"))
     shape = ShapeSpec("t", 32, 4, "train")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1"):
-        M.build_ctx(get_arch("minicpm-2b").reduced(),
-                    ShapeSpec("s", 32, 4, "decode"), m)
-    with pytest.raises(NotImplementedError, match="head_v"):
-        M.build_ctx(get_arch("xlstm-1.3b").reduced(),
-                    ShapeSpec("t", 32, 2, "train"), m)
+    serve = M.build_ctx(get_arch("minicpm-2b").reduced(),
+                        ShapeSpec("s", 32, 4, "decode"), m)
+    assert serve.rules["kv_seq"] == ("model",) and not serve.fsdp
+    assert serve.batch_axes == ("data",) and serve.rules["embed"] == ()
+    xl = M.build_ctx(get_arch("xlstm-1.3b").reduced(),
+                     ShapeSpec("t", 32, 2, "train"), m)
+    assert xl.rules["head_v"] == ("model",) and xl.fsdp
     moe = M.build_ctx(get_arch("dbrx-132b").reduced(), shape, m)
     assert moe.rules["experts"] == ("model",) and moe.fsdp
     assert moe.rules["embed"] == ("data",) and moe.batch_sharded

@@ -664,6 +664,58 @@ def test_sharded_train_step_on_card_matches_no_mesh(cuda_device, arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "gemma3-27b", "dbrx-132b",
+                                  "jamba-1.5-large-398b", "xlstm-1.3b"])
+def test_mesh_engine_on_card_matches_no_mesh(cuda_device, arch):
+    """A reduced f32 ``Engine`` on the card through the 1x1 NCCL mesh,
+    whose serving rules name ``model`` (and ``data`` for MoE decode):
+    vocab-parallel embedding and logits, TP attention, the K/V handoff
+    onto ``kv_seq``, the flash-decoding merge, Mamba's and xLSTM's
+    sharded states; against the same engine without a mesh, from the
+    same weights and prompt: the prefill logits equal, every decode
+    step's within 1e-5, the tokens equal."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.serving.engine import Engine
+    cfg = dataclasses.replace(get_arch(arch).reduced(), cache_dtype="f32")
+    B = 4 if cfg.n_experts else 2
+    params = PM.tree_map(lambda t: t.float().to(cuda_device),
+                         M.init_params(cfg, 7, "cpu"))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (B, 16), dtype=np.int32))
+    shape = ShapeSpec("serve", 32, B, "decode")
+    mesh = make_smoke_mesh("cuda")
+    try:
+        runs = []
+        for m in (None, mesh):
+            eng = Engine(cfg, shape, params, device=cuda_device, mesh=m)
+            logits = []
+            for fn in ("prefill", "decode"):
+                def rec(*a, _f=getattr(eng, fn)):
+                    lg, c = _f(*a)
+                    logits.append(lg.cpu())
+                    return lg, c
+                setattr(eng, fn, rec)
+            with torch.no_grad():
+                out, _ = eng.generate({"tokens": toks}, max_new_tokens=8,
+                                      cache_len=32)
+            runs.append((logits, out.cpu()))
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(runs[1][0][0], runs[0][0][0])
+    for a, b in zip(runs[1][0][1:], runs[0][0][1:]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    assert torch.equal(runs[1][1], runs[0][1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(300,), (1,), (1000, 130)])
 def test_quantize_on_card_bit_equal_to_cpu(cuda_device, shape):
     from repro_torch.distributed.compression import dequantize, quantize

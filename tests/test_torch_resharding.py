@@ -7,8 +7,11 @@ On 4 gloo ranks of a 2x2 (data, model) mesh, each rank's shard of a
 and 0.5); the shards equal the reference's results, which run on 4 host
 devices.  ``tube_reshard`` moves a 16 x 4 tensor's ``model`` sharding
 from its rows to its columns with one all-to-all; each rank's shard is
-its ``local_slice`` of the same tensor.  Any other handoff raises,
-naming the ROADMAP item, before any collective.
+its ``local_slice`` of the same tensor.  The serving handoffs
+(``TUBE_CASES``: an axis that leaves, one that joins, the prefill K/V's
+heads over ``model`` onto a dim split over ``(data, model)``, a spec
+kept) give each rank its ``local_slice`` under the new spec; a handoff
+that would split a source dim's axes raises before any collective.
 """
 from types import SimpleNamespace
 
@@ -59,12 +62,21 @@ def test_tube_reshard_moves_rows_to_columns(runs):
         np.testing.assert_array_equal(got["tube"], x["y"][sl])
 
 
+@pytest.mark.parametrize("case", range(len(MR.TUBE_CASES)))
+def test_tube_reshard_serving_handoffs(runs, case):
+    _, x, ranks = runs
+    src, dst = MR.TUBE_CASES[case]
+    for got in ranks:
+        sl = local_slice((16, 4), dst, MESH, tuple(got["coord"]))
+        np.testing.assert_array_equal(got[f"tube_{case}"], x["y"][sl])
+
+
 @pytest.mark.parametrize("src,dst", [
-    (("model", None), ("data", None)),
-    (("model", None), (None, ("data", "model"))),
+    ((("data", "model"), None), ("data", None)),
+    ((None, ("data", "model")), (("data", "model"), None)),
     ((("data", "model"), None), (None, ("data", "model"))),
-    (("model", None), ("model", None)),
+    (("model", None), (("model", "data"), None)),
 ])
 def test_tube_reshard_refuses_other_handoffs(src, dst):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="tube_reshard"):
         tube_reshard(torch.zeros(8, 4), src, dst, MESH)

@@ -244,22 +244,22 @@ def _stub(shape):
 
 @pytest.mark.parametrize("mshape", [(2, 2), (16, 16), (2, 16, 16)])
 def test_build_ctx_refuses_head_v_kv_seq_and_serving_only(mshape):
-    """Every training cell builds but xLSTM's outside small-dense DP
-    (``head_v``); every serving cell raises, a decode cell naming
-    ``kv_seq``."""
+    """Nothing is refused any more: every arch, full and reduced, builds
+    under every training and serving shape (``train_4k``,
+    ``prefill_32k``, ``decode_32k``, ``long_500k`` and a small train
+    shape), xLSTM's ``head_v`` and the decode cells' ``kv_seq`` too, with
+    the reference's ``make_rules``."""
+    from repro.distributed.mesh import make_rules as ref_rules
     mesh = _stub(mshape)
-    train = [SHAPES["train_4k"], ShapeSpec("t", 64, 2, "train")]
+    ref_mesh = SimpleNamespace(shape=dict(zip(mesh.mesh_dim_names, mshape)),
+                               axis_names=mesh.mesh_dim_names)
+    shapes = [SHAPES[n] for n in ("train_4k", "prefill_32k", "decode_32k",
+                                  "long_500k")] + [ShapeSpec("t", 64, 2,
+                                                             "train")]
     for arch in ARCHS:
         for cfg in (get_arch(arch), get_arch(arch).reduced()):
-            for shape in train:
-                rules = M.make_rules(cfg, shape, mesh)
-                if cfg.mixer == "xlstm_pattern" and rules["head_v"]:
-                    with pytest.raises(NotImplementedError, match="'head_v'"):
-                        M.build_ctx(cfg, shape, mesh)
-                else:
-                    assert M.build_ctx(cfg, shape, mesh).mesh is mesh
-            for sname in ("prefill_32k", "decode_32k"):
-                with pytest.raises(NotImplementedError, match="serving"):
-                    M.build_ctx(cfg, SHAPES[sname], mesh)
-            with pytest.raises(NotImplementedError, match="'kv_seq'"):
-                M.build_ctx(cfg, SHAPES["decode_32k"], mesh)
+            for shape in shapes:
+                ctx = M.build_ctx(cfg, shape, mesh)
+                assert ctx.mesh is mesh and ctx.fsdp == shape.is_training
+                assert ctx.rules == ref_rules(cfg, shape, ref_mesh), (
+                    arch, shape.name)
