@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 It imports the port (``src/repro_torch``) only, builds the hand-written
-CUDA kernels from the checkout's sources, and runs sixteen phases:
+CUDA kernels from the checkout's sources, and runs seventeen phases:
 
 1. environment: torch / CUDA versions, the card's name and power limit,
    and ``synth_payload`` against numpy's own uint8 draw;
@@ -133,13 +133,28 @@ CUDA kernels from the checkout's sources, and runs sixteen phases:
     logits within a bf16 limit, one flash launch per attention layer in
     each prefill), prefill and decode times, tokens/s and peak memory of
     both, then each mesh generate profiled in a process of its own (idle
-    share, the device time inside the ``nccl:*`` ranges).
+    share, the device time inside the ``nccl:*`` ranges);
+17. the port's surface: (a) the torch twins of the JAX examples, each
+    run to its end in a child process on the card, the three started
+    together, with their own assertions (``examples/quickstart_torch.py``: the simulator's
+    sections and the real data plane through ``backend="torch"``;
+    ``serve_workflow_torch.py``: the two-model workflow through
+    ``Engine``; ``train_small_torch.py --tiny``: 200 steps with a
+    checkpoint and a restart), each one's wall time, its kernels'
+    launches and the quickstart's measured against its simulated ms;
+    (b) 13c's step traced on ``meta`` tensors by the dry-run
+    (``dryrun.step_costs``) against one real step on the card under
+    ``FlopCounterMode``: the trace's FLOPs equal the card's plus the
+    full-square FLOPs of each flash forward, which the counter does not
+    see; the trace's FLOPs over 13c's warm step at 989 TFLOP/s, and
+    ``6 N D`` over them.
 
 The data plane (phases 4-6), the serving path (phase 9), the chaos run
 (10), the swap tier (11), each model of phase 12, the training runs
-(13c, 14b, 15a) and each mesh generate of phase 16 are the main paths:
-the launch counters are set to 0 just before each and read just after
-it; the reads that check landed bytes are kept out of the counts.
+(13c, 14b, 15a), each mesh generate of phase 16 and each run of phase 17
+are the main paths: the launch counters are set to 0 just before each
+and read just after it (a child process's from its start to its end);
+the reads that check landed bytes are kept out of the counts.
 Float32 matrix products stay in full f32 (TF32 off).  Any failed check
 raises and the script exits nonzero.  The second-to-last line is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -2534,6 +2549,138 @@ def mesh_serve_profile_child() -> None:
 
 
 # ------------------------------------------------------- phases 10-11 ---
+# ------------------------------------------------------------ phase 17 ---
+#: phase 17a: the torch twins of the JAX examples, child processes on the
+#: card started together: (file, arguments, time limit in seconds)
+EXAMPLES = (("quickstart_torch.py", (), 300),
+            ("serve_workflow_torch.py", (), 300),
+            ("train_small_torch.py", ("--tiny",), 600))
+
+
+def run_examples(say) -> dict:
+    """Phase 17a: the twins of EXAMPLES started together on the card, each
+    run to its end (its own assertions hold, exit 0); each one's wall
+    time from the common start and the JSON summary it prints last,
+    which holds its kernels' launch counts.  A child that outlives its
+    limit is killed."""
+    import threading
+    t0 = time.perf_counter()
+    runs = []
+    for name, args, limit in EXAMPLES:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "examples" / name),
+                                 *args], cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        runs.append({"name": name, "args": args, "limit": limit,
+                     "proc": proc})
+
+    def wait(r):
+        try:
+            r["out"], r["err"] = r["proc"].communicate(timeout=r["limit"])
+        except subprocess.TimeoutExpired:
+            r["proc"].kill()
+            r["out"], r["err"] = r["proc"].communicate()
+        r["wall"] = time.perf_counter() - t0
+    threads = [threading.Thread(target=wait, args=(r,)) for r in runs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out = {}
+    for r in runs:
+        name, rc = r["name"], r["proc"].returncode
+        check(rc == 0, f"17a: {name} exited {rc}:\n{r['out'][-3000:]}\n"
+              f"{r['err'][-3000:]}")
+        (key, rec), = json.loads(r["out"].strip().splitlines()[-1]).items()
+        rec["wall_s"] = r["wall"]
+        out[key] = rec
+        say(f"  {name} {' '.join(r['args'])}: exit 0, {r['wall']:.2f} s "
+            f"wall (the three run together); launches {rec['launches']}")
+    q = out["quickstart"]["backend"]
+    check(q["bytes_equal"] and q["device"].startswith("cuda"),
+          f"17a: the quickstart's section 7 {q}")
+    say(f"  quickstart section 7, 32 MB gpu1 -> gpu4 ({q['kind']}, "
+        f"{q['n_batches']} trigger batches): ExecReport.wall_ms "
+        f"{q['wall_ms']:.3f} on the card against {q['sim_ms']:.3f} "
+        f"simulated ms (DGX-V100 NVLink)")
+    t = out["train_small"]
+    say(f"  train_small --tiny: loss {t['first_loss']:.3f} -> "
+        f"{t['last_loss']:.3f}, step {t['step']}, resumed from step "
+        f"{t['resumed_from']}")
+    return out
+
+
+def trace_against_card(say, step_ms: float) -> dict:
+    """Phase 17b: 13c's step (MiniCPM-2B as published, TRAIN_BATCH x
+    TRAIN_SEQ tokens in TRAIN_ACCUM microbatches, no mesh) traced on
+    ``meta`` tensors by the dry-run (``dryrun.step_costs``), and one real
+    step of it on the card under ``FlopCounterMode``, which does not see
+    the flash kernel's forward (a ``ctypes`` call): the trace must count
+    the card's FLOPs plus the full-square ``4 B Hq L L D`` of each flash
+    launch, which the trace counts as the plain attention.  ``step_ms``
+    is 13c's warm step."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.models import model as M
+    from repro_torch.models import param as PM
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import build_train_step
+    cfg = get_arch(TRAIN_ARCH)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    trace = DRY.step_costs(cfg, shape, None, accum=TRAIN_ACCUM)
+    trace_s = time.perf_counter() - t0
+
+    oc = OptConfig(schedule=cfg.lr_schedule, total_steps=TRAIN_STEPS,
+                   warmup_steps=max(TRAIN_STEPS // 10, 1))
+    params = PM.trainable(M.init_params(cfg, 0))
+    opt = init_opt_state(M.model_specs(cfg), oc.state_dtype, "cuda")
+    step = build_train_step(cfg, M.build_ctx(cfg), oc, TRAIN_ACCUM)
+    batch = Pipeline(cfg, shape, device="cuda").next_batch()
+    FK.flash_attention.launches = 0
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt, batch)
+    torch.cuda.synchronize()
+    launches = FK.flash_attention.launches
+    del params, opt, batch
+    card = fc.get_total_flops()
+    per = 4 * (TRAIN_BATCH // TRAIN_ACCUM) * cfg.n_heads * TRAIN_SEQ ** 2 \
+        * cfg.resolved_head_dim
+    gap = trace["flops"] - (card + launches * per)
+    if gap:                       # the difference, op by op
+        from repro_torch.costs import CostCounter
+        traced, args = DRY.build_step(cfg, shape, None, accum=TRAIN_ACCUM)
+        with CostCounter() as c:
+            traced(*args)
+        got = {str(k): v for k, v in fc.get_flop_counts()["Global"].items()}
+        for op in sorted(set(got) | set(c.flops_by_op)):
+            say(f"  {op}: trace {c.flops_by_op.get(op, 0)}, card "
+                f"{got.get(op, 0)}")
+    check(gap == 0, f"17b: trace {trace['flops']} FLOPs against the card's "
+          f"{card} + {launches} flash launches x {per} (a gap of {gap})")
+    n_params = PM.count_params(M.model_specs(cfg))
+    model_flops = 6 * n_params * TRAIN_BATCH * TRAIN_SEQ
+    share = trace["flops"] / (step_ms * 1e-3 * BF16_FLOPS_PER_S)
+    say(f"  trace ({trace_s:.2f} s on the host): {trace['flops']} FLOPs = "
+        f"the card's {card} (FlopCounterMode) + {launches} flash launches x "
+        f"{per} (4 B Hq L L D), equal; traffic {trace['traffic_bytes']} B "
+        f"(unfused), collectives {trace['collective_bytes']}")
+    say(f"  trace FLOPs over 13c's warm step ({step_ms:.1f} ms) at 989 "
+        f"TFLOP/s: {share:.4f}; model FLOPs 6 N D = {model_flops} over the "
+        f"trace's: {model_flops / trace['flops']:.4f}")
+    return {"trace_flops": trace["flops"], "card_flops": card,
+            "flash_launches": launches, "flash_forward_flops": per,
+            "traffic_bytes": trace["traffic_bytes"],
+            "collective_bytes": trace["collective_bytes"],
+            "trace_s": trace_s, "step_ms": step_ms,
+            "trace_flops_share": share,
+            "model_over_trace": model_flops / trace["flops"]}
+
+
 def port_lib():
     """The modules phases 10-11 build their runs from: the port's.  A test
     passes the JAX package's modules of the same names instead, to run
@@ -3362,6 +3509,35 @@ def main() -> int:
     say(f"  flash_attention launches by phase: {flash_by_phase}, in all "
         f"{launches['flash_attention']}; {time.perf_counter() - t0:.2f} s")
 
+    # ---- the examples and the dry-run's trace, counted per run ----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    say(f"[17a] the torch twins of the JAX examples, child processes on "
+        f"the card started together: "
+        f"{', '.join(' '.join((n, *a)) for n, a, _ in EXAMPLES)}")
+    examples = run_examples(say)
+    t1 = time.perf_counter()
+    say(f"[17b] the dry-run's trace of 13c's step on meta tensors against "
+        f"the same step on the card under FlopCounterMode")
+    flops_check = trace_against_card(say, training["steps"][-1]["ms"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_by_phase["17"] = {k: r["launches"]["flash_attention"]
+                            for k, r in examples.items()}
+    flash_by_phase["17"]["17b"] = flops_check["flash_launches"]
+    launches["flash_attention"] += sum(flash_by_phase["17"].values())
+    for name in ("gather_chunks", "scatter_chunks"):
+        n = examples["quickstart"]["launches"][name]
+        check(n > 0, f"17a: {name} never launched in the quickstart")
+        launches[name] += n
+    check(all(flash_by_phase["17"].values()),
+          f"17: a run launched no flash kernel: {flash_by_phase['17']}")
+    say(f"  17a {t1 - t0:.2f} s, 17b {time.perf_counter() - t1:.2f} s; "
+        f"flash_attention launches by phase: {flash_by_phase}, in all "
+        f"{launches['flash_attention']}; chunked copy in all "
+        f"{launches['gather_chunks']} + {launches['scatter_chunks']}")
+
     replaces = {"gather_chunks": "src/repro/kernels/chunked_copy/kernel.py:37",
                 "scatter_chunks": "src/repro/kernels/chunked_copy/kernel.py:59",
                 "flash_attention":
@@ -3418,6 +3594,7 @@ def main() -> int:
     say(json.dumps({"weight_sharding": {"training": moe_train,
                                         "reduced_worst_err": moe_reduced}}))
     say(json.dumps({"mesh_serving": mesh_serving}))
+    say(json.dumps({"examples": examples, "dry_run_trace": flops_check}))
     say(json.dumps({"chaos": {k: chaos[k] for k in (
         "faults", "fired", "retries", "failures", "recovered_stages",
         "replans", "checked", "held")}, "swap": swap}))

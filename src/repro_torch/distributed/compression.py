@@ -20,6 +20,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch import costs
 from repro_torch.models import param as PM
 
 _BLOCK = 128
@@ -63,9 +64,11 @@ def compressed_psum_leaf(g, err, group):
     q, scale, n = quantize(gf)
     gmax = scale.clone()
     dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+    costs.collective("all-reduce", gmax)
     requant = torch.round(q.to(torch.float32) * (scale / gmax)).to(torch.int8)
     summed = requant.to(torch.int32)
     dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=group)
+    costs.collective("all-reduce", summed)
     reduced_blocks = summed.to(torch.float32) * gmax
     reduced = reduced_blocks.reshape(-1)[:n].reshape(g.shape)
     # error feedback: the part this pod failed to encode

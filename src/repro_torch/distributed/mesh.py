@@ -42,9 +42,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import costs
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 
 Rules = dict[str, tuple[str, ...]]
@@ -274,14 +276,30 @@ def local_shape(shape: tuple[int, ...], spec: Spec, mesh) -> tuple[int, ...]:
                  for d, part in zip(shape, spec))
 
 
+def _cache(mesh) -> dict:
+    """What the collectives derive from a mesh's layout and groups, kept
+    on the mesh (neither changes over its life): each rank's coordinate
+    and each axes tuple's ``_groups`` plan and ``axis_index``."""
+    try:
+        return mesh._repro_cache
+    except AttributeError:
+        mesh._repro_cache = {}
+        return mesh._repro_cache
+
+
 def coordinate(mesh, rank: int | None = None) -> tuple[int, ...]:
     """The mesh coordinate of a global rank (this process's by default)."""
     if rank is None:
         return tuple(mesh.get_coordinate())
-    hits = (mesh.mesh == rank).nonzero()
-    if len(hits) != 1:
-        raise ValueError(f"rank {rank} is not on the mesh")
-    return tuple(int(i) for i in hits[0])
+    cache = _cache(mesh)
+    if "coords" not in cache:
+        ids = mesh.mesh.cpu().numpy()
+        cache["coords"] = {int(ids[ix]): tuple(int(i) for i in ix)
+                           for ix in np.ndindex(ids.shape)}
+    try:
+        return cache["coords"][rank]
+    except KeyError:
+        raise ValueError(f"rank {rank} is not on the mesh") from None
 
 
 def _steps(mesh, axes: tuple[str, ...]):
@@ -307,6 +325,7 @@ def all_reduce_axes(t: torch.Tensor, mesh, axes: tuple[str, ...],
     for a in _steps(mesh, axes):
         dist.all_reduce(t, op=op,
                         group=None if a is None else mesh.get_group(a))
+        costs.collective("all-reduce", t)
     return t
 
 
@@ -325,6 +344,7 @@ def gather_full(local: torch.Tensor, shape: tuple[int, ...], spec: Spec,
         world = dist.get_world_size()
         parts = [torch.empty_like(local) for _ in range(world)]
         dist.all_gather(parts, local)
+        costs.collective("all-gather", parts)
         for r, part in enumerate(parts):
             out[local_slice(shape, spec, mesh, coordinate(mesh, r))] = part
         return out
@@ -337,6 +357,7 @@ def gather_full(local: torch.Tensor, shape: tuple[int, ...], spec: Spec,
         ranks = dist.get_process_group_ranks(g)
         parts = [torch.empty_like(cur) for _ in ranks]
         dist.all_gather(parts, cur, group=g)
+        costs.collective("all-gather", parts)
         at = mesh.mesh_dim_names.index(a)
         order = sorted(range(len(ranks)),
                        key=lambda i: coordinate(mesh, ranks[i])[at])
@@ -360,7 +381,16 @@ def _chunk_key(mesh, axes: tuple[str, ...], rank: int) -> int:
 
 def _groups(mesh, axes: tuple[str, ...]):
     """``_steps(mesh, axes)`` as (group, ranks in group order, each rank's
-    chunk index along the step's axes), minor axis first."""
+    chunk index along the step's axes), minor axis first; made once per
+    mesh and axes (``_cache``)."""
+    cache = _cache(mesh)
+    key = ("groups", axes)
+    if key not in cache:
+        cache[key] = _plan_groups(mesh, axes)
+    return cache[key]
+
+
+def _plan_groups(mesh, axes: tuple[str, ...]):
     out = []
     for a in _steps(mesh, axes):
         if a is None:
@@ -383,6 +413,7 @@ def gather_dim(t: torch.Tensor, mesh, axes: tuple[str, ...],
     for g, ranks, keys in _groups(mesh, axes):
         parts = [torch.empty_like(cur) for _ in ranks]
         dist.all_gather(parts, cur, group=g)
+        costs.collective("all-gather", parts)
         order = sorted(range(len(ranks)), key=keys.__getitem__)
         cur = parts[0] if len(parts) == 1 else torch.cat(
             [parts[i] for i in order], dim=dim)
@@ -399,6 +430,7 @@ def reduce_scatter_dim(t: torch.Tensor, mesh, axes: tuple[str, ...],
         out = torch.empty_like(chunks[0], memory_format=torch.contiguous_format)
         dist.reduce_scatter(out, [chunks[k].contiguous() for k in keys],
                             group=g)
+        costs.collective("reduce-scatter", out)
         cur = out
     return cur
 
@@ -421,7 +453,13 @@ def local_chunk(t: torch.Tensor, mesh, axes: tuple[str, ...],
 def axis_index(mesh, axes: tuple[str, ...]) -> int:
     """This rank's index over ``axes`` (major first): the chunk of a dim
     split over them that it holds (the reference's ``lax.axis_index``)."""
-    return _chunk_key(mesh, axes, dist.get_rank()) if axes else 0
+    if not axes:
+        return 0
+    cache = _cache(mesh)
+    key = ("index", axes)
+    if key not in cache:
+        cache[key] = _chunk_key(mesh, axes, dist.get_rank())
+    return cache[key]
 
 
 class _CopyTo(torch.autograd.Function):

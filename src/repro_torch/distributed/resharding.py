@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch import costs
 from repro_torch.distributed.mesh import (
     axis_sizes, coordinate, entry_axes, gather_dim, local_chunk)
 
@@ -46,6 +47,7 @@ def _ring(vals: torch.Tensor, mesh, ax_name: str, s: int) -> torch.Tensor:
            dist.P2POp(dist.irecv, got, by_pos[(me - s) % n], group=g)]
     for w in dist.batch_isend_irecv(ops):
         w.wait()
+    costs.collective("collective-permute", got)
     return got
 
 
@@ -102,6 +104,7 @@ def _all_to_all(x, mesh, axis: str, src_dim: int, dst_dim: int):
     send = [chunks[p].contiguous() for p in pos]
     recv = [torch.empty_like(send[0]) for _ in ranks]
     dist.all_to_all(recv, send, group=g)
+    costs.collective("all-to-all", recv)
     return torch.cat([recv[i] for i in sorted(range(n), key=pos.__getitem__)],
                      dim=src_dim)
 

@@ -4,7 +4,11 @@ other tensor goes to the CUDA kernel, which launches or raises.  Where
 a gradient is wanted, the kernel runs under ``FlashAttention``, whose
 backward is the plain blockwise gradient (``ref.attention_bwd_ref``):
 the JAX package has no backward kernel either (XLA differentiates its
-``jnp`` scan).  There is no fallback."""
+``jnp`` scan).  There is no fallback.  A ``meta`` tensor, which holds no
+data (the dry-run's cost trace), takes the plain version in the
+kernel's place, under ``FlashAttention`` too: its products are the
+full-matrix ``4 B Hq Lq Lkv D`` FLOPs the JAX package's dry-run
+counts."""
 from __future__ import annotations
 
 import torch
@@ -26,13 +30,19 @@ class FlashAttention(torch.autograd.Function):
         ctx.kw = dict(causal=causal, window=window, q_offset=q_offset,
                       kv_offset=kv_offset)
         ctx.save_for_backward(q, k, v)
-        return flash_attention(q, k, v, **ctx.kw)
+        return _forward(q, k, v, **ctx.kw)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = attention_bwd_ref(q, k, v, do, **ctx.kw)
         return dq, dk, dv, None, None, None, None
+
+
+def _forward(q, k, v, **kw):
+    if q.device.type == "meta":
+        return attention_ref(q, k, v, **kw)
+    return flash_attention(q, k, v, **kw)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -49,4 +59,4 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, q_offset,
                                     kv_offset)
-    return flash_attention(q, k, v, **kw)
+    return _forward(q, k, v, **kw)

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import costs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.mesh import copy_to, reduce_from
 from repro_torch.models.param import PSpec
@@ -148,18 +149,19 @@ def mamba_forward(x, p, cfg: ArchConfig, *, chunk: int = 64, state=None,
                          f"chunk {chunk}")
     h, tail = state["ssm"], state["conv"]
     outs = []
-    for x_c in x.split(chunk, dim=1):
+    for x_c in costs.each(x.split(chunk, dim=1)):
         xz = x_c @ p["in_x"]                                  # (B, Q, din)
         z = x_c @ p["in_z"]
         conv_out, tail = _conv_chunk(xz, tail, p["conv_w"], p["conv_b"])
         xa = F.silu(conv_out)
         ys = []
-        for t in range(chunk):
+        for t in costs.trips(chunk):
             h, y = _chunk_step(p, h, xa[:, t], split)
             ys.append(y)
-        ys = torch.stack(ys, dim=1)                           # (B, Q, din)
+        ys = torch.stack(costs.fill(ys, chunk), dim=1)        # (B, Q, din)
         outs.append(_out(p, ys * F.silu(z), split))           # (B, Q, D)
-    return torch.cat(outs, dim=1), {"conv": tail, "ssm": h}
+    return torch.cat(costs.fill(outs, L // chunk), dim=1), \
+        {"conv": tail, "ssm": h}
 
 
 def _out(p, y, split):

@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import costs
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.distributed.mesh import (
     all_reduce_axes, data_axes, entry_axes, local_shape, make_rules,
@@ -172,11 +173,12 @@ def init_cache(cfg: ArchConfig, shape: ShapeSpec, device="cuda", ctx=None):
 
 # ----------------------------------------------------------- execution -----
 
-def _layers(layout: StackLayout):
-    """(kind, where) of every layer in execution order: each unit runs
-    its runs in turn, then the rest.  ``where`` indexes the stacked
-    trees: ("units", run, unit, i) or ("rest", run, i)."""
-    for u in range(layout.n_units):
+def _layers(layout: StackLayout, units=None):
+    """(kind, where) of every layer in execution order: each unit of
+    ``units`` (all by default) runs its runs in turn, then the rest.
+    ``where`` indexes the stacked trees: ("units", run, unit, i) or
+    ("rest", run, i)."""
+    for u in range(layout.n_units) if units is None else units:
         for r, (kind, rl) in enumerate(layout.runs):
             for i in range(rl):
                 yield kind, ("units", r, u, i)
@@ -252,9 +254,10 @@ def _train_stack(cfg, ctx, layout: StackLayout, bp, x, enc_out):
 
     records = torch.is_grad_enabled() and (x.requires_grad or any(
         t.requires_grad for _, t in PM.tree_leaves_with_paths(bp)))
-    for u in range(layout.n_units):
+    for u in costs.trips(layout.n_units):
         if records:
-            x, aux = checkpoint(unit, x, aux, u, use_reentrant=False)
+            x, aux = checkpoint(costs.replay(unit), x, aux, u,
+                                use_reentrant=False)
         else:
             x, aux = unit(x, aux, u)
     for t, (kind, rl) in zip(bp["rest"], layout.rest_runs):
@@ -277,7 +280,7 @@ def apply_stack(cfg, ctx, layout: StackLayout, bp, x, *, mode: str,
         return _train_stack(cfg, ctx, layout, bp, x, enc_out)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = {}
-    for kind, where in _layers(layout):
+    for kind, where in _layers(layout, costs.trips(layout.n_units)):
         cache_in = _at(caches, where) if mode == "decode" else None
         x, nc, da = apply_block(cfg, ctx, kind, _at(bp, where), x, mode=mode,
                                 cache=cache_in, pos=pos, enc_out=enc_out)
@@ -289,6 +292,13 @@ def apply_stack(cfg, ctx, layout: StackLayout, bp, x, *, mode: str,
                 if t is not cache_in[key]:
                     cache_in[key].copy_(t)
     if mode == "prefill":
+        if costs.counting():
+            # units 0 and 1 alone ran: unit 0's caches stand in for the
+            # other units'
+            for _, (group, r, u, *i) in _layers(layout):
+                if group == "units":
+                    per_layer.setdefault((group, r, u, *i),
+                                         per_layer[(group, r, 0, *i)])
         return x, _stacked(layout, per_layer), aux
     return x, caches, aux
 

@@ -34,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import costs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.mesh import copy_to, gather_from, reduce_from
 from repro_torch.models.param import PSpec
@@ -195,11 +196,11 @@ def mlstm_forward(x, p, cfg: ArchConfig, *, chunk: int = 256, state=None,
         raise ValueError(f"sequence length {L} is not a multiple of the "
                          f"chunk {Q}")
     outs = []
-    for x_c in x.split(Q, dim=1):
+    for x_c in costs.each(x.split(Q, dim=1)):
         q, k, v, a, b, z = proj(x_c)
         h, state = _mlstm_chunk(q, k, v, a, b, state)
         outs.append(readout(h, z))
-    return torch.cat(outs, dim=1), state
+    return torch.cat(costs.fill(outs, L // Q), dim=1), state
 
 
 # ------------------------------------------------------------- sLSTM -------
@@ -283,10 +284,10 @@ def slstm_forward(x, p, cfg: ArchConfig, *, chunk: int = 64, state=None,
     gx = torch.einsum("bld,dghe->blghe", x, p["w_gates"])      # (B,L,4,H,dh)
     rt = _recurrent_weights(p)
     hs = []
-    for t in range(L):
+    for t in costs.trips(L):
         state = _slstm_step(p, state, gx[:, t], rt)
         hs.append(state["h"])
-    y = torch.stack(hs, dim=1).reshape(B, L, H * dh).to(x.dtype)
+    y = torch.stack(costs.fill(hs, L), dim=1).reshape(B, L, H * dh).to(x.dtype)
     # post-up-projection FFN (sLSTM block style)
     y = copy_to(y, mesh, m_axes)
     h2 = F.silu(y @ p["ffn_gate"]) * (y @ p["ffn_up"])

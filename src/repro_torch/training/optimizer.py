@@ -149,23 +149,56 @@ def zero1_shardings(param_specs, state_dtype: str, rules, mesh):
 def init_opt_state(param_specs, state_dtype: str = "f32", device="cuda", *,
                    rules=None, mesh=None):
     """The zero optimizer state for ``param_specs`` on ``device``.  With
-    ``rules`` and ``mesh`` (ZeRO-1), only this rank's moment shards: each
-    moment leaf's ``local_slice`` under ``zero1_shardings``."""
+    ``rules`` and ``mesh``, only this rank's moment shards: each moment
+    leaf's ``local_slice`` under its own spec (the parameter's, under
+    ZeRO-1's rules, ``zero1_shardings``; an int8 moment's codes and
+    scales may split its last axis otherwise, ``adamw_update``)."""
     if mesh is None:
         return PM.initialize(opt_pspecs(param_specs, state_dtype), 0, device)
-    from repro_torch.distributed.mesh import local_shape
-    shd = PM.tree_leaves(zero1_shardings(param_specs, state_dtype, rules,
-                                         mesh))
-
-    def cut(p, s):
-        return tree_map(lambda x: dataclasses.replace(
-            x, shape=local_shape(x.shape, s.spec, mesh)),
-            _moment_pspec(p, state_dtype))
-    mk = PM.tree_unflatten(param_specs, [
-        cut(p, s) for p, s in zip(PM.tree_leaves(param_specs), shd)])
+    from repro_torch.distributed.mesh import local_shape, spec_for
+    mk = tree_map(lambda x: dataclasses.replace(x, shape=local_shape(
+        x.shape, spec_for(x.shape, x.logical, rules, mesh), mesh)),
+        opt_pspecs(param_specs, state_dtype)["m"])
     return PM.initialize({"m": mk, "v": mk,
                           "step": PSpec((), (), torch.int32, "zeros")},
                          0, device)
+
+
+def _block_split(p_shd, m_shd, local_last: int):
+    """For a parameter slice whose last dim holds ``local_last`` columns,
+    with int8 moments (``p_shd`` the parameter's sharding, ``m_shd`` its
+    moment's {"q", "scale"} shardings): None where each rank's codes and
+    scales are the whole 128-blocks of its own columns; otherwise (mesh,
+    the axes that split the parameter's last dim, its codes', its
+    scales'), and the update regathers the last dim to quantize whole
+    blocks, as the reference's one array does."""
+    from repro_torch.distributed.mesh import entry_axes
+    axes = [entry_axes(p_shd.spec[-1]), entry_axes(m_shd["q"].spec[-1]),
+            entry_axes(m_shd["scale"].spec[-1])]
+    if axes[0] == axes[1] == axes[2] and local_last % _QBLOCK == 0:
+        return None
+    return (p_shd.mesh, *axes)
+
+
+def _dequantize_split(s, last: int, split):
+    """The rank's columns of an int8 moment whose blocks straddle ranks:
+    codes and scales gathered over the last dim, dequantized, cut."""
+    from repro_torch.distributed.mesh import gather_dim, local_chunk
+    mesh, pa, qa, sa = split
+    whole = {"q": gather_dim(s["q"], mesh, qa, -1),
+             "scale": gather_dim(s["scale"], mesh, sa, -1)}
+    return local_chunk(dequantize_blockwise(whole, last), mesh, pa, -1)
+
+
+def _quantize_split(x, st, split):
+    """``x`` (the rank's columns, f32) into the moment ``st`` in place:
+    the last dim gathered, quantized in whole blocks, each rank keeping
+    its codes and scales."""
+    from repro_torch.distributed.mesh import gather_dim, local_chunk
+    mesh, pa, qa, sa = split
+    qs = quantize_blockwise(gather_dim(x, mesh, pa, -1))
+    st["q"].copy_(local_chunk(qs["q"], mesh, qa, -1))
+    st["scale"].copy_(local_chunk(qs["scale"], mesh, sa, -1))
 
 
 def _zip_leaves(p, *trees):
@@ -214,7 +247,7 @@ def clip_by_global_norm(grads, max_norm: float):
 
 @torch.no_grad()
 def adamw_update(oc: OptConfig, params, grads, opt_state, shardings=None,
-                 param_shardings=None):
+                 param_shardings=None, moment_shardings=None):
     """One AdamW step.  Writes ``params`` and ``opt_state`` (m, v and the
     step) in place and returns (params, opt_state, metrics).  The
     gradient clip is folded into the update: each leaf's gradient is
@@ -227,7 +260,13 @@ def adamw_update(oc: OptConfig, params, grads, opt_state, shardings=None,
     then all-gathers the new parameter over the spec's axes.  With
     ``param_shardings`` alone, every leaf is the rank's slice of its
     parameter and updates in place; the norm reads them
-    (``global_norm``)."""
+    (``global_norm``), and with ``moment_shardings`` (the moments' own
+    shardings, ``PM.shardings(opt_pspecs(...)["m"], ...)``) an int8
+    moment whose 128-blocks straddle the ranks that split its
+    parameter's last dim (``_block_split``) is dequantized and
+    requantized whole along that dim, gathered, so its codes and scales
+    are the reference's."""
+    from repro_torch.distributed.mesh import mesh_axis_size
     gnorm = global_norm(grads, param_shardings)
     dev = gnorm.device
     c = lambda v: _f32(v, dev)          # noqa: E731
@@ -241,29 +280,38 @@ def adamw_update(oc: OptConfig, params, grads, opt_state, shardings=None,
     b1, b2, one_b1, one_b2 = c(oc.b1), c(oc.b2), c(1 - oc.b1), c(1 - oc.b2)
     eps, wd = c(oc.eps), c(oc.weight_decay)
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, split=None):
         quantized = isinstance(m, dict)
         last = p.shape[-1] if p.dim() else 1
         gf = g.float() * clip
         if g.dtype != torch.float32:
             gf = gf.to(g.dtype).float()
-        mf = dequantize_blockwise(m, last) if quantized else m
-        vf = dequantize_blockwise(v, last) if quantized else v
+        if split is not None:
+            last = p.shape[-1] * mesh_axis_size(split[0], split[1])
+            mf = _dequantize_split(m, last, split)
+            vf = _dequantize_split(v, last, split)
+        else:
+            mf = dequantize_blockwise(m, last) if quantized else m
+            vf = dequantize_blockwise(v, last) if quantized else v
         mf = mf * b1 + one_b1 * gf
         vf = vf * b2 + one_b2 * gf.square()
         delta = (mf / b1c) / (torch.sqrt(vf / b2c) + eps) + wd * p.float()
         p.copy_((p.float() - lr * delta).to(p.dtype))
         for st, new in ((m, mf), (v, vf)):
-            if quantized:
+            if split is not None:
+                _quantize_split(new, st, split)
+            elif quantized:
                 qs = quantize_blockwise(new)
                 st["q"].copy_(qs["q"])
                 st["scale"].copy_(qs["scale"])
             else:
                 st.copy_(new)
 
-    def update_leaf(p, g, m, v):
+    def update_leaf(p, g, m, v, split=None):
+        if p.numel() == 0:          # a run of no layer (fewer than a unit)
+            return
         if p.dim() < 2:
-            upd(p, g, m, v)
+            upd(p, g, m, v, split)
             return
         # elementwise along the leading dim (the int8 blocks run along the
         # last), so slices of it update exactly as the whole leaf would;
@@ -284,12 +332,20 @@ def adamw_update(oc: OptConfig, params, grads, opt_state, shardings=None,
                           zip(*(st[k].split(n) for k in st))]
                          if isinstance(st, dict) else st.split(n))
         for args in zip(*parts):
-            upd(*args)
+            upd(*args, split)
 
     if shardings is None:
-        for p, g, m, v in _zip_leaves(params, grads, opt_state["m"],
-                                      opt_state["v"]):
-            update_leaf(p, g, m, v)
+        leaves = _zip_leaves(params, grads, opt_state["m"], opt_state["v"])
+        if moment_shardings is None:
+            for p, g, m, v in leaves:
+                update_leaf(p, g, m, v)
+        else:
+            for (p, g, m, v), (ps, ms) in zip(
+                    leaves, _zip_leaves(param_shardings, moment_shardings)):
+                split = None
+                if isinstance(m, dict) and p.dim():
+                    split = _block_split(ps, ms, p.shape[-1])
+                update_leaf(p, g, m, v, split)
         return params, opt_state, {"lr": lr, "grad_norm": gnorm}
 
     from repro_torch.distributed.mesh import (

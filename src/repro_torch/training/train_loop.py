@@ -59,10 +59,9 @@ def run_training(cfg: ArchConfig, shape: ShapeSpec, mesh=None, *, steps: int,
     opt_rules = zshd = tree_shd = local = None
     if mesh is not None:
         opt_rules = make_opt_rules(cfg, shape, mesh, ctx.rules)
-        # checks that int8 moments keep whole 128-blocks in either case
-        zshd = zero1_shardings(pspecs, oc.state_dtype, opt_rules, mesh)
-        if not use_small_dense_dp(cfg, shape, mesh):
-            zshd = None
+        if use_small_dense_dp(cfg, shape, mesh):
+            # ZeRO-1; int8 moments must keep whole 128-blocks there
+            zshd = zero1_shardings(pspecs, oc.state_dtype, opt_rules, mesh)
         tree_shd = {"params": PM.shardings(pspecs, ctx.rules, mesh),
                     "opt": PM.shardings(opt_pspecs(pspecs, oc.state_dtype),
                                         opt_rules, mesh)}

@@ -30,13 +30,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import costs
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.distributed.mesh import (
     all_reduce_axes, coordinate, data_axes, local_slice, mesh_axis_size,
     spec_axes, spec_for, use_small_dense_dp)
 from repro_torch.models import model as M
 from repro_torch.models import param as PM
-from repro_torch.training.optimizer import OptConfig, adamw_update
+from repro_torch.training.optimizer import (
+    OptConfig, adamw_update, opt_pspecs)
 
 
 def default_accum(shape: ShapeSpec, mesh=None,
@@ -97,9 +99,12 @@ def build_train_step(cfg: ArchConfig, ctx, oc: OptConfig, accum: int,
     updated in place and returned.  On a mesh, ``batch`` is the global
     batch, ``params`` the rank's slices and ``shardings`` the moments'
     under ZeRO-1."""
-    pshd = None
+    pshd = mshd = None
     if ctx.mesh is not None:
         pshd = PM.shardings(M.model_specs(cfg), ctx.rules, ctx.mesh)
+        if oc.state_dtype == "int8" and shardings is None:
+            mshd = PM.shardings(opt_pspecs(M.model_specs(cfg),
+                                           "int8")["m"], ctx.rules, ctx.mesh)
 
     def train_step(params, opt_state, batch):
         axes = None
@@ -111,7 +116,7 @@ def build_train_step(cfg: ArchConfig, ctx, oc: OptConfig, accum: int,
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                    for p in PM.tree_leaves(params)]
             loss = torch.zeros((), dtype=torch.float32, device=acc[0].device)
-            for mb in split_microbatches(batch, accum):
+            for mb in costs.each(split_microbatches(batch, accum)):
                 lmb, _, g = value_and_grad(cfg, ctx, params, mb)
                 for a, gl in zip(acc, PM.tree_leaves(g)):
                     a.add_(gl)
@@ -126,7 +131,7 @@ def build_train_step(cfg: ArchConfig, ctx, oc: OptConfig, accum: int,
                 ctx.mesh, tuple(dict.fromkeys(ctx.data_axes + axes)), grads,
                 pshd, dict(metrics, loss=loss))
         params, opt_state, om = adamw_update(oc, params, grads, opt_state,
-                                             shardings, pshd)
+                                             shardings, pshd, mshd)
         return params, opt_state, dict(metrics, loss=loss, **om)
 
     return train_step

@@ -71,6 +71,19 @@ SERVE_TRAIN = ("xlstm_1x4", "xlstm-1.3b", (1, 4), ("data", "model"), 2)
 #: lengths
 XSERVE = ((2, 2), 2, 16, 16, 32)
 
+#: the dry-run's cost cells: (name, arch reduced, kind, tokens a row,
+#: global batch), each lowered and compiled on a (2, 2) (data, model)
+#: mesh as ``repro.launch.dryrun.lower_cell`` does, its HLO read by the
+#: loop-aware ``hlo_analysis.analyze``.  512 tokens: the reference's
+#: attention runs in 512-key chunks, so no chunk is padding.
+DRY_CELLS = (
+    ("minicpm_train", "minicpm-2b", "train", 512, 4),
+    ("dbrx_train", "dbrx-132b", "train", 512, 2),
+    ("jamba_train", "jamba-1.5-large-398b", "train", 512, 2),
+    ("minicpm_prefill", "minicpm-2b", "prefill", 512, 2),
+    ("qwen72_decode", "qwen2-72b", "decode", 512, 2),
+)
+
 #: local_slice cases: (mesh shape, axis names, global shape, spec)
 SLICE_CASES = (
     ((2, 2), ("data", "model"), (8, 12), (("data", "model"), None)),
@@ -547,6 +560,62 @@ def compression(inputs, out):
     np.savez(Path(out) / "compression.npz", raised=np.array(raised), **res)
 
 
+def dry_costs(inputs, out):
+    """Each of DRY_CELLS lowered and compiled as ``lower_cell`` does
+    (``build_step``, ``jax.jit(...).lower(...).compile()``, the loop-aware
+    ``analyze`` of its HLO) on a (2, 2) mesh of host devices: per-device
+    flops, traffic and collective bytes."""
+    import jax
+
+    jax.devices()                    # the device count is fixed from here
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeSpec
+    from repro.distributed.mesh import make_opt_rules
+    from repro.launch import dryrun as D
+    from repro.launch.hlo_analysis import analyze
+    from repro.models import io
+    from repro.models import model as M
+    from repro.models import param as PM
+    from repro.training.optimizer import opt_pspecs
+
+    res = {}
+    mesh = _mesh((2, 2), ("data", "model"))
+    for name, arch, kind, seq, gb in DRY_CELLS:
+        cfg, shape = get_arch(arch).reduced(), ShapeSpec(name, seq, gb, kind)
+        ctx = M.build_ctx(cfg, shape, mesh)
+        pspecs = M.model_specs(cfg)
+        p_abs = PM.abstract(pspecs)
+        p_shd = PM.shardings(pspecs, ctx.rules, mesh)
+        bspecs = io.batch_pspecs(cfg, shape)
+        b_abs = PM.abstract(bspecs)
+        b_shd = PM.shardings(bspecs, ctx.rules, mesh)
+        step = D.build_step(cfg, shape, ctx, mesh)
+        with mesh:
+            if kind == "train":
+                ospecs = opt_pspecs(pspecs, D.opt_state_dtype(cfg))
+                o_shd = PM.shardings(ospecs, make_opt_rules(
+                    cfg, shape, mesh, ctx.rules), mesh)
+                lowered = jax.jit(step, in_shardings=(p_shd, o_shd, b_shd),
+                                  out_shardings=(p_shd, o_shd, None),
+                                  donate_argnums=(0, 1)).lower(
+                    p_abs, PM.abstract(ospecs), b_abs)
+            elif kind == "prefill":
+                c_shd = PM.shardings(M.cache_pspecs(cfg, shape), ctx.rules,
+                                     mesh)
+                lowered = jax.jit(step, in_shardings=(p_shd, b_shd),
+                                  out_shardings=(None, c_shd)).lower(
+                    p_abs, b_abs)
+            else:
+                cspecs = M.cache_pspecs(cfg, shape)
+                c_shd = PM.shardings(cspecs, ctx.rules, mesh)
+                lowered = jax.jit(step, in_shardings=(p_shd, c_shd, b_shd),
+                                  out_shardings=(None, c_shd),
+                                  donate_argnums=(1,)).lower(
+                    p_abs, PM.abstract(cspecs), b_abs)
+            res[name] = analyze(lowered.compile().as_text())
+    (Path(out) / "dry_costs.json").write_text(json.dumps(res))
+
+
 def resharding(inputs, out):
     """Both permutes of a 16 x 3 tensor sharded over ``model`` on a 2x2
     mesh."""
@@ -568,5 +637,5 @@ def resharding(inputs, out):
 if __name__ == "__main__":
     sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
     {"mesh_facts": mesh_facts, "dp": dp, "tp": tp, "serve": serve,
-     "compression": compression,
+     "compression": compression, "dry_costs": dry_costs,
      "resharding": resharding}[sys.argv[1]](sys.argv[2], sys.argv[3])

@@ -499,8 +499,74 @@ def resharding(ref_dir, out):
     dist.destroy_process_group()
 
 
+#: int8 moments whose 128-blocks straddle the ranks of a (1, 4) mesh:
+#: name -> (shape, logical); "a" keeps whole blocks on every rank
+INT8_SPLIT = {"w": ((256, 384), (None, "mlp")),        # 96 columns a rank
+              "r": ((4096, 16), ("embed", "experts")),  # 4 of 16, one block
+              "a": ((64, 1024), (None, "mlp"))}         # 256: aligned
+INT8_SPLIT_RULES = {"mlp": ("model",), "experts": ("model",)}
+INT8_SPLIT_STEPS = 2
+
+
+def int8_split_state(mesh=None):
+    """(param specs, params, the gradients of each step) of INT8_SPLIT,
+    whole, from a fixed seed."""
+    import torch
+
+    from repro_torch.models.param import PSpec
+    rng = np.random.default_rng(7)
+    specs = {k: PSpec(shape, logical, torch.float32)
+             for k, (shape, logical) in INT8_SPLIT.items()}
+    params = {k: torch.from_numpy(rng.standard_normal(p.shape,
+                                                      dtype=np.float32))
+              for k, p in specs.items()}
+    grads = [{k: torch.from_numpy(rng.standard_normal(p.shape,
+                                                      dtype=np.float32))
+              for k, p in specs.items()} for _ in range(INT8_SPLIT_STEPS)]
+    return specs, params, grads
+
+
+def int8_split(ref_dir, out):
+    """INT8_SPLIT_STEPS ``adamw_update`` steps with int8 moments on the
+    rank's slices of INT8_SPLIT (1, 4): each rank writes its new
+    parameters and moment codes and scales."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import local_slice
+    from repro_torch.models import param as PM
+    from repro_torch.training import optimizer as O
+
+    dist.init_process_group("gloo")
+    mesh = _mesh((1, 4), ("data", "model"))
+    coord = tuple(mesh.get_coordinate())
+    specs, params, grads = int8_split_state()
+    pshd = PM.shardings(specs, INT8_SPLIT_RULES, mesh)
+    mshd = PM.shardings(O.opt_pspecs(specs, "int8")["m"], INT8_SPLIT_RULES,
+                        mesh)
+
+    def mine(tree, shd):
+        return {k: t[local_slice(tuple(t.shape), shd[k].spec, mesh, coord)]
+                .clone() for k, t in tree.items()}
+    params = mine(params, pshd)
+    opt = O.init_opt_state(specs, "int8", "cpu", rules=INT8_SPLIT_RULES,
+                           mesh=mesh)
+    oc = O.OptConfig(state_dtype="int8", warmup_steps=1)
+    for g in grads:
+        params, opt, _ = O.adamw_update(oc, params, mine(g, pshd), opt,
+                                        None, pshd, mshd)
+    np.savez(Path(out) / f"int8_split_rank{dist.get_rank()}.npz",
+             coord=np.array(coord),
+             **{f"p/{k}": t.numpy() for k, t in params.items()},
+             **{f"{m}/{k}/{part}": opt[m][k][part].numpy()
+                for m in ("m", "v") for k in specs
+                for part in ("q", "scale")})
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
     sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
     {"dp": dp, "restore_1x2": restore_1x2, "tp": tp, "serve": serve,
-     "compression": compression,
-     "resharding": resharding}[sys.argv[1]](sys.argv[2], sys.argv[3])
+     "compression": compression, "resharding": resharding,
+     "int8_split": int8_split}[sys.argv[1]](sys.argv[2], sys.argv[3])

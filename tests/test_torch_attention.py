@@ -188,15 +188,32 @@ def test_rope_matches_reference(positions):
     _close(port, ref, 1e-2)
 
 
-def test_non_cpu_tensor_never_falls_back():
-    """A tensor off the CPU goes to the kernel wrapper, which raises for
-    anything that is not CUDA: there is no silent plain-version arm."""
-    q = torch.empty((1, 2, 8, 16), device="meta")
+def test_non_cpu_tensor_never_falls_back(monkeypatch):
+    """A tensor off the CPU goes to the kernel wrapper: there is no silent
+    plain-version arm.  The one exception is
+    a ``meta`` tensor, which holds no data (the dry-run's cost trace): it
+    takes the plain version.  The CUDA tensors here are fake (shapes on
+    this CPU build) and the wrappers stand-ins that raise."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def kernel(*args, **kw):
+        raise ValueError("the CUDA kernel was called")
+    monkeypatch.setattr(tflash, "flash_attention", kernel)
+    monkeypatch.setattr(tpaged, "paged_attention", kernel)
+    with FakeTensorMode():
+        q = torch.empty((1, 2, 8, 16), device="cuda")
+        qd = torch.empty((1, 2, 16), device="cuda")
+        pages = torch.empty((2, 8, 2, 16), device="cuda")
+        ids = torch.empty((1, 2), dtype=torch.int32, device="cuda")
+        lens = torch.empty((1,), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         tflash.attention(q, q, q)
-    qd = torch.empty((1, 2, 16), device="meta")
-    pages = torch.empty((2, 8, 2, 16), device="meta")
-    ids = torch.empty((1, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        tpaged.attention(qd, pages, pages, ids,
-                         torch.empty((1,), dtype=torch.int32, device="meta"))
+        tpaged.attention(qd, pages, pages, ids, lens)
+    m = torch.empty((1, 2, 8, 16), device="meta")
+    assert tflash.attention(m, m, m).shape == m.shape
+    md = torch.empty((1, 2, 16), device="meta")
+    mp = torch.empty((2, 8, 2, 16), device="meta")
+    assert tpaged.attention(
+        md, mp, mp, torch.empty((1, 2), dtype=torch.int32, device="meta"),
+        torch.empty((1,), dtype=torch.int32, device="meta")).shape == md.shape

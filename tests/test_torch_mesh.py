@@ -19,6 +19,7 @@ package's, on the CPU.
   than one member (DBRX reduced on 2x2), and the mesh factories start a
   group of one or say what is missing.
 """
+import math
 from types import SimpleNamespace
 
 import pytest
@@ -115,7 +116,7 @@ def facts(tmp_path_factory):
 @pytest.fixture(scope="module")
 def port_records():
     assert not dist.is_initialized()
-    return DRY.run(all_cells(), [False, True])
+    return DRY.run(all_cells(), [False, True], costs=False)
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
@@ -129,7 +130,8 @@ def test_dryrun_records_match_reference(facts, port_records, arch):
 
 def test_dryrun_cli_reports_every_cell(tmp_path, capsys):
     out = tmp_path / "dry.json"
-    assert DRY.main(["--all", "--both-meshes", "--out", str(out)]) == 0
+    assert DRY.main(["--all", "--both-meshes", "--no-costs", "--out",
+                     str(out)]) == 0
     assert f"{2 * len(all_cells())}/{2 * len(all_cells())} cells OK" in \
         capsys.readouterr().out
     assert not dist.is_initialized()
@@ -232,3 +234,47 @@ def test_zero1_int8_moments_keep_whole_blocks():
         O.zero1_shardings(split, "int8", rules, m)
     assert O.zero1_shardings(split, "f32", rules, m)["w"].spec == \
         (None, "model")
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_cached_mesh_plans_equal_uncached(multi_pod):
+    """``coordinate``, ``_groups`` and ``axis_index`` read plans kept on
+    the mesh; on the 16x16 and 2x16x16 fake meshes each equals the plan
+    made from the mesh's rank table on every call, for every ordered
+    tuple of axes."""
+    import itertools
+
+    assert not dist.is_initialized()
+    shape, names = LM.production_shape(multi_pod)
+    DRY.fake_world(math.prod(shape))
+    try:
+        mesh = LM.make_production_mesh(multi_pod=multi_pod,
+                                       device_type="cpu")
+        table = mesh.mesh
+
+        def coord(r):
+            return tuple(int(i) for i in (table == r).nonzero()[0])
+        sizes = dict(zip(names, shape))
+        for r in range(table.numel()):
+            assert MESH.coordinate(mesh, r) == coord(r)
+        for n in range(1, len(names) + 1):
+            for axes in itertools.permutations(names, n):
+                want = []
+                for a in MESH._steps(mesh, axes):
+                    step_axes = axes if a is None else (a,)
+                    g = None if a is None else mesh.get_group(a)
+                    ranks = (list(range(dist.get_world_size())) if a is None
+                             else dist.get_process_group_ranks(g))
+                    keys = []
+                    for r in ranks:
+                        at = dict(zip(names, coord(r)))
+                        idx = 0
+                        for b in step_axes:
+                            idx = idx * sizes[b] + at[b]
+                        keys.append(idx)
+                    want.append((g, ranks, keys))
+                assert MESH._groups(mesh, axes) == want
+                assert MESH._groups(mesh, axes) is MESH._groups(mesh, axes)
+                assert MESH.axis_index(mesh, axes) == 0     # rank 0
+    finally:
+        dist.destroy_process_group()

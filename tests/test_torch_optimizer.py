@@ -162,3 +162,41 @@ def test_clip_by_global_norm_matches_reference(scale):
     for a, b in zip(PM.tree_leaves(tg), jax.tree.leaves(jg)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
                                    atol=0)
+
+
+def test_int8_moments_split_across_blocks_match_one_device(tmp_path):
+    """int8 moments whose 128-blocks straddle the ranks that split their
+    parameter's last dim (``_meshrun.INT8_SPLIT`` on 4 gloo ranks, (1, 4)):
+    two updates leave each rank's parameters, codes and scales equal to
+    its slices of the same updates on one device, bit for bit."""
+    from types import SimpleNamespace
+
+    import _meshrun as MRUN
+    from repro_torch.distributed.mesh import local_slice
+
+    MRUN.launch(4, "int8_split", tmp_path, tmp_path)
+    specs, params, grads = MRUN.int8_split_state()
+    opt = O.init_opt_state(specs, "int8", "cpu")
+    oc = O.OptConfig(state_dtype="int8", warmup_steps=1)
+    for g in grads:
+        params, opt, _ = O.adamw_update(oc, params, g, opt)
+    mesh = SimpleNamespace(shape=(1, 4), mesh_dim_names=("data", "model"))
+    pshd = PM.shardings(specs, MRUN.INT8_SPLIT_RULES, mesh)
+    mshd = PM.shardings(O.opt_pspecs(specs, "int8")["m"],
+                        MRUN.INT8_SPLIT_RULES, mesh)
+    assert [O._block_split(pshd[k], mshd[k], specs[k].shape[-1] // 4)
+            is None for k in ("w", "r", "a")] == [False, False, True]
+    for r in range(4):
+        got = np.load(tmp_path / f"int8_split_rank{r}.npz")
+        coord = tuple(got["coord"])
+
+        def mine(t, spec):
+            return t[local_slice(tuple(t.shape), spec, mesh, coord)].numpy()
+        for k in specs:
+            np.testing.assert_array_equal(got[f"p/{k}"],
+                                          mine(params[k], pshd[k].spec))
+            for m in ("m", "v"):
+                for part in ("q", "scale"):
+                    np.testing.assert_array_equal(
+                        got[f"{m}/{k}/{part}"],
+                        mine(opt[m][k][part], mshd[k][part].spec))

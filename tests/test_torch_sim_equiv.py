@@ -168,14 +168,20 @@ def _imports(path: Path):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 15
     # the mesh layer's modules, the twins of the reference's
     assert {f"{m}.py" for m in ("distributed/mesh", "distributed/compression",
                                 "distributed/resharding", "launch/mesh",
                                 "launch/dryrun", "launch/hlo_analysis")} \
-        <= {f.relative_to(PORT).as_posix() for f in files[:-1]}
+        <= {f.relative_to(PORT).as_posix() for f in files
+            if f.is_relative_to(PORT)}
+    # the torch twins of the JAX examples
+    assert {f.name for f in examples} >= {
+        "quickstart_torch.py", "serve_workflow_torch.py",
+        "train_small_torch.py"}
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")]
     assert bad == []
