@@ -9,11 +9,12 @@ CUDA kernels from the checkout's sources, and runs seventeen phases:
 1. environment: torch / CUDA versions, the card's name and power limit,
    and ``synth_payload`` against numpy's own uint8 draw;
 2. build: one ``nvcc`` for sm_90a per source, all started together;
-   the compiler's register and spill report, and each flash and paged
-   instance's registers, local (spill) bytes, shared memory and resident
-   blocks per SM as the card reports them, and the resident blocks the
-   paged split plan fills; the bf16 D=64 flash instance and every bf16
-   paged instance must not spill;
+   the compiler's register and spill report, and each flash, flash
+   backward and paged instance's registers, local (spill) bytes, shared
+   memory and resident blocks per SM as the card reports them, and the
+   resident blocks the paged split plan fills; the bf16 D=64 flash
+   instance and every bf16 flash backward and paged instance must not
+   spill;
 3. the chunked-copy kernels against their plain versions on the card,
    byte for byte, and their times at the main path's shapes beside their
    bound;
@@ -33,7 +34,11 @@ CUDA kernels from the checkout's sources, and runs seventeen phases:
    versions' and the library call's (flash and paged also at Qwen2-72B's
    heads, GQA at D=128, flash also at Whisper-medium's encoder and
    Qwen2-VL-2B's prefill; paged also beside SDPA over the same K/V as a
-   contiguous cache, a yardstick without the gather);
+   contiguous cache, a yardstick without the gather); the flash
+   backward (its forward's statistics, then dq, dk, dv) against its
+   plain version at odd cases and at 13's and 15's training shapes, f32
+   and bf16, timed at those two shapes beside its bound, its plain
+   version, the plain backward it replaced and SDPA's backward;
 8. the serving path, reduced, in f32: ``Engine.generate`` for MiniCPM-2B,
    Gemma3-27B (the sliding window), Qwen2-VL-2B (M-RoPE, a vision
    prefix), Whisper-medium (the encoder), DBRX-132B and Grok-1-314B
@@ -75,15 +80,15 @@ CUDA kernels from the checkout's sources, and runs seventeen phases:
 13. the training path: (a) one ``build_train_step`` step with 2
     microbatches of phase 8's eight architectures reduced, in f32, card
     against CPU (loss and every leaf's gradient, flash launches: forward
-    and checkpoint recompute); (b) MiniCPM-2B at full width in bf16,
-    ``loss_fn`` and its whole-tree gradient through the kernel's autograd
-    Function against the plain attention, one microbatch of 2 x 4096
-    tokens; (c) MiniCPM-2B trained at full width through
-    ``train_loop.run_training`` (bf16 parameters, f32 AdamW moments, the
-    WSD schedule; 3 steps of 4 x 4096 tokens in 2 microbatches): ms a
-    step, tokens/s, peak memory, model-FLOPs share, then one step
-    profiled (device idle share, top kernels, the flash forward against
-    the plain attention backward); (d) a full-width checkpoint save and
+    and checkpoint recompute, and one backward launch each); (b)
+    MiniCPM-2B at full width in bf16, ``loss_fn`` and its whole-tree
+    gradient through the kernels' autograd Function against the plain
+    attention, one microbatch of 2 x 4096 tokens; (c) MiniCPM-2B trained
+    at full width through ``train_loop.run_training`` (bf16 parameters,
+    f32 AdamW moments, the WSD schedule; 3 steps of 4 x 4096 tokens in 2
+    microbatches): ms a step, tokens/s, peak memory, model-FLOPs share,
+    then one step profiled (device idle share, top kernels, the flash
+    forward's and backward's device time); (d) a full-width checkpoint save and
     restore of parameters and optimizer state (27 GB) under a temporary
     directory, every leaf equal, and the reference's fault-recovery
     scenario on the card at reduced size;
@@ -146,8 +151,9 @@ CUDA kernels from the checkout's sources, and runs seventeen phases:
     (``dryrun.step_costs``) against one real step on the card under
     ``FlopCounterMode``: the trace's FLOPs equal the card's plus the
     full-square FLOPs of each flash forward, which the counter does not
-    see; the trace's FLOPs over 13c's warm step at 989 TFLOP/s, and
-    ``6 N D`` over them.
+    see, and for each flash backward launch what the trace counts for its
+    plain stand-in on ``meta``; the trace's FLOPs over 13c's warm step
+    at 989 TFLOP/s, and ``6 N D`` over them.
 
 The data plane (phases 4-6), the serving path (phase 9), the chaos run
 (10), the swap tier (11), each model of phase 12, the training runs
@@ -578,6 +584,27 @@ PAGED_CASES = [(8, 36, 1, 64, 128, 8, 48),
 #: 4096-token cache in 32 shuffled pages of 128, batch 8: timed in phase
 #: 7, not a model path
 QWEN_PAGED = (8, 64, 8, 128, 128, 32)
+# The flash backward's odd cases, (B, Hq, Hkv, Lq, Lkv, D, causal, window,
+# q_offset, kv_offset): the CPU tests' gradient cases (tests/_flashcases.py)
+# spread over the head dims: a ragged Lq, GQA group 6, queries after a
+# prefix, a sliding window, not causal, the first 30 rows blind, the last
+# rows blind, and a long GQA case at D=128.  ``train_flash_cases()`` and
+# ``moe_flash_cases()`` add the training shapes.
+FLASH_BWD_CASES = [(2, 4, 4, 200, 200, 64, True, 0, 0, 0),
+                   (2, 6, 1, 128, 128, 128, True, 0, 0, 0),
+                   (1, 4, 2, 130, 200, 32, True, 0, 70, 0),
+                   (1, 4, 2, 100, 200, 16, True, 24, 100, 0),
+                   (1, 4, 4, 100, 300, 64, False, 0, 0, 0),
+                   (1, 4, 4, 100, 100, 128, True, 0, 0, 30),
+                   (1, 4, 4, 100, 60, 64, False, 16, 0, 0),
+                   (1, 12, 2, 1000, 1000, 128, True, 0, 0, 0)]
+#: the flash backward against its plain version: f32 max abs error; in
+#: bf16 each row within 2**-6 of its largest value (PAGED_BF16_ROW_REL's
+#: rule)
+FLASH_BWD_F32_TOL = 1e-4
+#: the forward's statistics against ``attention_stats_ref`` (log-sum-exp,
+#: natural log), both dtypes
+FLASH_STATS_TOL = 1e-4
 
 
 def _rand(shape, dtype, gen):
@@ -757,6 +784,58 @@ def attention_cases() -> dict:
     return worst
 
 
+def flash_bwd_cases() -> dict:
+    """The flash backward against its plain version at FLASH_BWD_CASES
+    and the training shapes (``train_flash_cases()``,
+    ``moe_flash_cases()``), f32 and bf16: the forward's statistics
+    against ``attention_stats_ref`` (a row that sees no key exactly
+    NEG_INF), then ``flash_attention_bwd`` against
+    ``attention_bwd_from_stats_ref`` on the same statistics.  Returns the
+    largest absolute difference by dtype, and in bf16 the largest
+    row-relative one under ("flash_attention_bwd", "bfloat16
+    row-relative")."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        NEG_INF, attention_bwd_from_stats_ref, attention_stats_ref)
+    gen = torch.Generator(device="cuda").manual_seed(CASE_SEED + 2)
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).removeprefix("torch.")
+        for case in FLASH_BWD_CASES + train_flash_cases() + moe_flash_cases():
+            B, Hq, Hkv, Lq, Lkv, D, causal, window, q_off, kv_off = case
+            kw = dict(causal=causal, window=window, q_offset=q_off,
+                      kv_offset=kv_off)
+            q, do = (_rand((B, Hq, Lq, D), dt, gen) for _ in range(2))
+            k, v = (_rand((B, Hkv, Lkv, D), dt, gen) for _ in range(2))
+            _, stats = FK.flash_attention(q, k, v, return_stats=True, **kw)
+            want = attention_stats_ref(q, k, **kw)
+            blind = want == NEG_INF
+            torch.cuda.synchronize()
+            err = _abs_err(stats[~blind], want[~blind])
+            check(torch.equal(stats == NEG_INF, blind)
+                  and err <= FLASH_STATS_TOL,
+                  f"flash statistics != plain at {case + (name,)}: {err}")
+            got = FK.flash_attention_bwd(q, k, v, do, stats, **kw)
+            plain = attention_bwd_from_stats_ref(q, k, v, do, stats, **kw)
+            torch.cuda.synchronize()
+            for part, g, w in zip(("dq", "dk", "dv"), got, plain):
+                ok = bool(torch.isfinite(g).all()) and (
+                    _abs_err(g, w) <= FLASH_BWD_F32_TOL
+                    if dt == torch.float32
+                    else _row_rel_err(g, w) <= PAGED_BF16_ROW_REL)
+                check(ok, f"flash_attention_bwd {part} != plain at "
+                      f"{case + (name,)}: max_abs_err {_abs_err(g, w):.3g}, "
+                      f"row-relative {_row_rel_err(g, w):.3g}")
+                key = ("flash_attention_bwd", name)
+                worst[key] = max(worst.get(key, 0.0), _abs_err(g, w))
+                if dt == torch.bfloat16:
+                    key = ("flash_attention_bwd", "bfloat16 row-relative")
+                    worst[key] = max(worst.get(key, 0.0), _row_rel_err(g, w))
+            del q, k, v, do, stats, got, plain
+    return worst
+
+
 def flash_work(B, Hq, Hkv, Lq, Lkv, D, causal, window, itemsize):
     """(bytes, flops) the function needs: q, k, v read once and o written
     once; 4*D flops for each (query, key) pair that the masks keep."""
@@ -808,6 +887,50 @@ def flash_times(B, Hq, Hkv, L, D, gen, causal: bool = True) -> dict:
         "bytes": nbytes, "flops": flops,
         "shape": f"B={B} {heads} Lq=Lkv={L} D={D} "
                  f"{'causal' if causal else 'not causal'} bf16"}
+
+
+def flash_bwd_times(B, Hq, Hkv, L, D, gen, causal: bool = True) -> dict:
+    """The flash backward kernel at one bf16 shape (CUDA graph replay),
+    its plain version (``attention_bwd_from_stats_ref``), the plain
+    backward it replaces on the training path (``attention_bwd_ref``) and
+    SDPA's backward alone (``enable_gqa``; one forward outside the
+    timing, then ``autograd.grad`` with ``retain_graph``), the last three
+    timed as eager calls with CUDA events.  The work: q, k, v, dO and the
+    statistics read once, dq, dk, dv written once; five products, 10 D
+    flops a (query, key) pair the masks keep."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_from_stats_ref, attention_bwd_ref)
+    bf = torch.bfloat16
+    q, do = (_rand((B, Hq, L, D), bf, gen) for _ in range(2))
+    k, v = (_rand((B, Hkv, L, D), bf, gen) for _ in range(2))
+    _, stats = FK.flash_attention(q, k, v, causal=causal, return_stats=True)
+    _, fwd_flops = flash_work(B, Hq, Hkv, L, L, D, causal, 0, 2)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                         enable_gqa=Hq != Hkv)
+
+    def warm_ms(fn, n):
+        fn()
+        return call_ms([fn] * n)
+    heads = f"Hq=Hkv={Hq}" if Hq == Hkv else f"Hq={Hq} Hkv={Hkv}"
+    res = {
+        "ms": device_ms([lambda: FK.flash_attention_bwd(
+            q, k, v, do, stats, causal=causal)] * 2),
+        "plain_ms": warm_ms(lambda: attention_bwd_from_stats_ref(
+            q, k, v, do, stats, causal=causal), 1),
+        "attention_bwd_ref_ms": warm_ms(lambda: attention_bwd_ref(
+            q, k, v, do, causal=causal), 1),
+        "library_ms": warm_ms(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), 3),
+        "bytes": (3 * B * Hq + 4 * B * Hkv) * L * D * 2 + B * Hq * L * 4,
+        "flops": fwd_flops * 5 // 2,
+        "shape": f"B={B} {heads} Lq=Lkv={L} D={D} "
+                 f"{'causal' if causal else 'not causal'} bf16"}
+    del out, leaves
+    return res
 
 
 def paged_times(B, Hq, Hkv, D, page, NP, gen) -> dict:
@@ -864,7 +987,9 @@ def attention_times() -> dict:
     MiniCPM-2B's prefill and decode shapes, at Qwen2-72B's heads and
     (flash) at FLASH_MODEL_SHAPES, phases 13's and 15's training shapes
     and phase 16's prefills other than MiniCPM-2B's, beside the bound, the plain version and the library call
-    (SDPA for flash; paged attention has no single PyTorch call)."""
+    (SDPA for flash; paged attention has no single PyTorch call); the
+    flash backward at phases 13's and 15's training shapes
+    (``flash_bwd_times``)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(CASE_SEED + 1)
     B, H, L, D = 8, 36, 1024, 64
@@ -888,7 +1013,11 @@ def attention_times() -> dict:
               if (B_s, Hq_s, Hkv_s, L_s, D_s) != (B, H, H, L, D)},
            "paged_attention": paged_times(B, H, H, D, 128, L // 128, gen),
            "paged_attention/qwen2-72b": paged_times(
-               B_q, Hq_q, Hkv_q, D_q, page_q, NP_q, gen)}
+               B_q, Hq_q, Hkv_q, D_q, page_q, NP_q, gen),
+           "flash_attention_bwd": flash_bwd_times(
+               B_t, Hq_t, Hkv_t, L_t, D_t, gen, causal=c_t),
+           f"flash_attention_bwd/{MOE_ARCH}-train": flash_bwd_times(
+               B_m, Hq_m, Hkv_m, L_m, D_m, gen, causal=c_m)}
     for r in res.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / BF16_FLOPS_PER_S * 1e3
@@ -1342,9 +1471,10 @@ def reduced_training(say) -> float:
     and on the CPU from the same weights (made on the CPU, then copied)
     and batch: the loss within REDUCED_TOL (xLSTM REDUCED_TOL_XLSTM), each
     leaf's accumulated gradient within the same bound in relnorm, and two
-    flash launches (forward, recompute) per decoder attention layer and
-    microbatch, one per encoder layer (no loss reads the encoder, so its
-    units are never recomputed)."""
+    flash launches (forward, recompute) and one backward launch per
+    decoder attention layer and microbatch, one forward launch per
+    encoder layer (no loss reads the encoder, so its units are never
+    recomputed nor differentiated)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -1374,13 +1504,15 @@ def reduced_training(say) -> float:
                                     OptConfig(schedule=cfg.lr_schedule),
                                     TRAIN_ACCUM)
             grads = []
-            before = FK.flash_attention.launches
+            before = (FK.flash_attention.launches,
+                      FK.flash_attention_bwd.launches)
             with captured_grads(grads):
                 _, opt, m = step(params, opt, {k: v.to(device)
                                                for k, v in batch.items()})
             torch.cuda.synchronize()
             runs[device] = (m["loss"].item(), grads[0], int(opt["step"]),
-                            FK.flash_attention.launches - before)
+                            FK.flash_attention.launches - before[0],
+                            FK.flash_attention_bwd.launches - before[1])
         tol = REDUCED_TOL_XLSTM if arch == "xlstm-1.3b" else REDUCED_TOL
         loss_err = abs(runs["cuda"][0] - runs["cpu"][0])
         rel = _leaf_relnorms(runs["cuda"][1], runs["cpu"][1])
@@ -1396,6 +1528,10 @@ def reduced_training(say) -> float:
         check(runs["cpu"][3] == 0 and runs["cuda"][3] == want,
               f"{arch} reduced train step: flash launches {runs['cpu'][3]} "
               f"on the CPU, {runs['cuda'][3]} on the card, not {want}")
+        check(runs["cpu"][4] == 0 and runs["cuda"][4] == TRAIN_ACCUM * n_dec,
+              f"{arch} reduced train step: flash backward launches "
+              f"{runs['cpu'][4]} on the CPU, {runs['cuda'][4]} on the card, "
+              f"not {TRAIN_ACCUM * n_dec}")
         worst = max(worst, loss_err, grad_err)
         say(f"  {arch} reduced f32, {batch_rows} x {seq} tokens in "
             f"{TRAIN_ACCUM} microbatches: loss {runs['cuda'][0]:.6f}, card "
@@ -1403,7 +1539,7 @@ def reduced_training(say) -> float:
             f"{grad_err:.3g} ({leaf}; limit {tol:g}); {runs['cuda'][3]} "
             f"flash launches on the card ({TRAIN_ACCUM} microbatches x "
             f"(2 x {n_dec} decoder attention layers + {cfg.enc_layers} "
-            f"encoder))")
+            f"encoder)), {runs['cuda'][4]} backward")
     return worst
 
 
@@ -1425,7 +1561,9 @@ def full_width_gradient(say) -> dict:
     TRAIN_SEQ tokens): ``loss_fn`` and its whole-tree gradient through
     the kernel (under ``FlashAttention``), then under ``plain_attention``
     (autograd of ``attention_ref``, the full score matrix a layer); the
-    losses within TRAIN_LOSS_REL, the gradients within GRAD_RELNORM."""
+    losses within TRAIN_LOSS_REL, the gradients within GRAD_RELNORM; the
+    kernel's run launches the flash forward twice (forward, recompute)
+    and its backward once per layer, the plain run neither."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeSpec
@@ -1444,7 +1582,8 @@ def full_width_gradient(say) -> dict:
     for name in ("kernel", "plain"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        before = FK.flash_attention.launches
+        before = (FK.flash_attention.launches,
+                  FK.flash_attention_bwd.launches)
         t0 = time.perf_counter()
         with plain_attention() if name == "plain" else contextlib.nullcontext():
             loss, _, grads = value_and_grad(cfg, ctx, params, batch)
@@ -1452,12 +1591,17 @@ def full_width_gradient(say) -> dict:
         out[name] = {"loss": loss.item(), "grads": grads,
                      "s": time.perf_counter() - t0,
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                     "launches": FK.flash_attention.launches - before}
+                     "launches": FK.flash_attention.launches - before[0],
+                     "bwd_launches":
+                         FK.flash_attention_bwd.launches - before[1]}
     k, p = out["kernel"], out["plain"]
     n_attn = attention_layers(cfg)
     check(k["launches"] == 2 * n_attn and p["launches"] == 0,
           f"13b: flash launches {k['launches']} (kernel), {p['launches']} "
           f"(plain), not 2 x {n_attn} and 0")
+    check(k["bwd_launches"] == n_attn and p["bwd_launches"] == 0,
+          f"13b: flash backward launches {k['bwd_launches']} (kernel), "
+          f"{p['bwd_launches']} (plain), not {n_attn} and 0")
     check(all(bool(torch.isfinite(g).all()) for g in PM.tree_leaves(
         k["grads"])), "13b: non-finite gradient through the kernel")
     loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
@@ -1474,14 +1618,16 @@ def full_width_gradient(say) -> dict:
            "worst_leaf": leaf, "worst_leaf_relnorm": worst,
            "s_kernel": k["s"], "s_plain": p["s"],
            "peak_gb_kernel": k["peak_gb"], "peak_gb_plain": p["peak_gb"],
-           "flash_launches": k["launches"]}
+           "flash_launches": k["launches"],
+           "flash_bwd_launches": k["bwd_launches"]}
     say(f"  {TRAIN_ARCH} full width bf16, {mb} x {TRAIN_SEQ} tokens: loss "
         f"{k['loss']:.6f} through the kernel, {p['loss']:.6f} plain "
         f"({loss_rel:.3g} relative, limit {TRAIN_LOSS_REL:g}); whole-tree "
         f"gradient relnorm {rel:.4f} (limit {GRAD_RELNORM}), worst leaf "
         f"{leaf} {worst:.4f}; loss and gradient {k['s']:.3f} s, peak "
         f"{k['peak_gb']:.2f} GB (plain: {p['s']:.3f} s, "
-        f"{p['peak_gb']:.2f} GB); {k['launches']} flash launches")
+        f"{p['peak_gb']:.2f} GB); {k['launches']} flash launches, "
+        f"{k['bwd_launches']} backward")
     return res
 
 
@@ -1536,9 +1682,9 @@ def profile_train_step(state, oc, say, mesh=None, cell=None) -> dict:
     """One more train step of 13c's state (14b's or 15a's, on its mesh)
     under ``torch.profiler``, as ``launch/profile_serve.py`` profiles a
     prefill: host wall time, device busy time and idle share, the top
-    kernels, and the device time in the flash forward against the plain
-    attention backward (``attention_bwd_ref``, read by its launches'
-    correlation ids).  ``cell`` is the run's (cfg, shape, accum), phase
+    kernels, and the device time of the flash forward and of the flash
+    backward's two kernels (``bwd_dq_*``, ``bwd_dkdv_*``), by kernel
+    name.  ``cell`` is the run's (cfg, shape, accum), phase
     13's by default.  On a mesh also the collectives: the train step's
     ``all_reduce_axes`` and ``gather_full`` calls (ZeRO-1's) and the device
     time launched inside them, the process group's own profiler ranges
@@ -1550,7 +1696,6 @@ def profile_train_step(state, oc, say, mesh=None, cell=None) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.distributed import mesh as MESH
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch.profile_serve import DEVICE_CATS, _report
     from repro_torch.models import model as M
     from repro_torch.models import param as PM
@@ -1570,8 +1715,7 @@ def profile_train_step(state, oc, say, mesh=None, cell=None) -> dict:
                                                        ctx.rules), mesh)
         step = TS.build_train_step(cfg, ctx, oc, accum, zshd)
     batch = state.pipeline.next_batch()
-    undo = [_traced(ops, "attention_bwd_ref", "attention_bwd_ref"),
-            _traced(TS, "all_reduce_axes", "mesh:all_reduce"),
+    undo = [_traced(TS, "all_reduce_axes", "mesh:all_reduce"),
             _traced(MESH, "gather_full", "mesh:all_gather")]
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
@@ -1599,13 +1743,15 @@ def profile_train_step(state, oc, say, mesh=None, cell=None) -> dict:
     rep = _report("  profiled train step", wall, dev, 10)
     rep["flash_forward_ms"] = sum(e["dur"] for e in dev
                                   if "flash_bf16" in e["name"]) / 1e3
-    rep["attention_bwd_ms"] = _correlated_ms(trace, dev, "attention_bwd_ref")
-    check(rep["flash_forward_ms"] > 0 and rep["attention_bwd_ms"] > 0,
-          f"{cfg.name}: no flash forward or attention backward in the "
+    rep["flash_backward_ms"] = sum(
+        e["dur"] for e in dev if "bwd_dq_bf16" in e["name"]
+        or "bwd_dkdv_bf16" in e["name"]) / 1e3
+    check(rep["flash_forward_ms"] > 0 and rep["flash_backward_ms"] > 0,
+          f"{cfg.name}: no flash forward or backward kernel in the "
           f"trace: {rep}")
-    say(f"  flash forward {rep['flash_forward_ms']:.3f} ms, plain attention "
-        f"backward {rep['attention_bwd_ms']:.3f} ms of {rep['busy_ms']:.3f} "
-        f"ms device busy ({rep['attention_bwd_ms'] / rep['busy_ms']:.3f}); "
+    say(f"  flash forward {rep['flash_forward_ms']:.3f} ms, flash backward "
+        f"{rep['flash_backward_ms']:.3f} ms of {rep['busy_ms']:.3f} ms "
+        f"device busy ({rep['flash_backward_ms'] / rep['busy_ms']:.3f}); "
         f"idle share {rep['idle_share']:.3f}")
     if mesh is None:
         return rep
@@ -1744,7 +1890,7 @@ def full_width_training(say):
         say(f"    {msg}")
 
     torch.cuda.reset_peak_memory_stats()
-    FK.flash_attention.launches = 0
+    FK.flash_attention.launches = FK.flash_attention_bwd.launches = 0
     with first_step_record(first) as hook:
         state, losses, stats = run_training(
             cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
@@ -1752,12 +1898,16 @@ def full_width_training(say):
             log_fn=log_fn, pipeline_cls=timed_pipeline(starts, hook))
     first["loss"] = losses[0]
     launches = FK.flash_attention.launches
+    bwd = FK.flash_attention_bwd.launches
     peak = torch.cuda.max_memory_allocated() / 1e9
     n_attn = attention_layers(cfg)
     want = n_attn * 2 * TRAIN_ACCUM * TRAIN_STEPS
     check(launches == want, f"13c: {launches} flash launches, not {n_attn} "
           f"layers x 2 (forward, recompute) x {TRAIN_ACCUM} microbatches x "
           f"{TRAIN_STEPS} steps = {want}")
+    check(bwd == want // 2, f"13c: {bwd} flash backward launches, not "
+          f"{n_attn} layers x {TRAIN_ACCUM} microbatches x {TRAIN_STEPS} "
+          f"steps = {want // 2}")
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
           f"13c: losses {losses}")
     check(int(state.opt_state["step"]) == TRAIN_STEPS and stats.restarts == 0,
@@ -1770,11 +1920,12 @@ def full_width_training(say):
     steps = step_times(starts, ends, n_params, tokens, say)
     say(f"  losses {losses}; peak {peak:.2f} GB; {launches} flash launches "
         f"({n_attn} layers x 2 x {TRAIN_ACCUM} microbatches x {TRAIN_STEPS} "
-        f"steps); every parameter leaf changed; optimizer step "
-        f"{int(state.opt_state['step'])}")
+        f"steps), {bwd} backward; every parameter leaf changed; optimizer "
+        f"step {int(state.opt_state['step'])}")
     res = {"params": n_params, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
            "accum": TRAIN_ACCUM, "losses": losses, "steps": steps,
-           "peak_gb": peak, "flash_launches": launches}
+           "peak_gb": peak, "flash_launches": launches,
+           "flash_bwd_launches": bwd}
     return res, state, oc, first
 
 
@@ -1907,16 +2058,19 @@ def mesh_training(first, oc, say) -> dict:
         say(f"    {msg}")
 
     torch.cuda.reset_peak_memory_stats()
-    FK.flash_attention.launches = 0
+    FK.flash_attention.launches = FK.flash_attention_bwd.launches = 0
     with first_step_record(mine) as hook:
         state, losses, stats = run_training(
             cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh,
             steps=MESH_STEPS, oc=oc, accum=TRAIN_ACCUM, log_every=1,
             log_fn=log_fn, pipeline_cls=timed_pipeline(starts, hook))
     launches = FK.flash_attention.launches
+    bwd = FK.flash_attention_bwd.launches
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = attention_layers(cfg) * 2 * TRAIN_ACCUM * MESH_STEPS
     check(launches == want, f"14b: {launches} flash launches, not {want}")
+    check(bwd == want // 2,
+          f"14b: {bwd} flash backward launches, not {want // 2}")
     steps = step_times(starts, ends, n_params, tokens, say)
     loss_rel = abs(losses[0] - first["loss"]) / abs(first["loss"])
     stats_now = mine["stats"]
@@ -1933,7 +2087,7 @@ def mesh_training(first, oc, say) -> dict:
         f"(relative {loss_rel:.3g}); worst leaf relnorm {worst[1]:.3g} "
         f"({worst[0]}); f64 sums differ by at most {sums:.3g} and norms by "
         f"{norms:.3g} of the leaf's norm; peak {peak:.2f} GB; {launches} "
-        f"flash launches")
+        f"flash launches, {bwd} backward")
     check(loss_rel <= MESH_LOSS_REL,
           f"14b: loss {losses[0]} against {first['loss']}")
     check(worst[1] <= MESH_LEAF_RELNORM, f"14b: leaf relnorm {worst}")
@@ -1944,7 +2098,8 @@ def mesh_training(first, oc, say) -> dict:
     return {"backend": "nccl", "loss": losses[0], "loss_13c": first["loss"],
             "loss_rel": loss_rel, "worst_leaf_relnorm": worst[1],
             "worst_leaf": worst[0], "sum_rel": sums, "norm_rel": norms,
-            "steps": steps, "peak_gb": peak, "flash_launches": launches}
+            "steps": steps, "peak_gb": peak, "flash_launches": launches,
+            "flash_bwd_launches": bwd}
 
 
 def mesh_profile_child() -> None:
@@ -2161,18 +2316,21 @@ def moe_mesh_training(say) -> dict:
         say(f"    {msg}")
 
     torch.cuda.reset_peak_memory_stats()
-    FK.flash_attention.launches = 0
+    FK.flash_attention.launches = FK.flash_attention_bwd.launches = 0
     with first_step_record(mine) as hook:
         state, losses, stats = run_training(
             cfg, shape, mesh, steps=MOE_STEPS, oc=oc, accum=MOE_ACCUM,
             log_every=1, log_fn=log_fn,
             pipeline_cls=timed_pipeline(starts, hook))
     launches = FK.flash_attention.launches
+    bwd = FK.flash_attention_bwd.launches
     peak = torch.cuda.max_memory_allocated() / 1e9
     n_attn = attention_layers(cfg)
     want = n_attn * 2 * MOE_ACCUM * MOE_STEPS
     check(launches == want, f"15a: {launches} flash launches, not {n_attn} "
           f"layers x 2 x {MOE_ACCUM} microbatches x {MOE_STEPS} steps")
+    check(bwd == want // 2, f"15a: {bwd} flash backward launches, not "
+          f"{n_attn} layers x {MOE_ACCUM} microbatches x {MOE_STEPS} steps")
     check(len(losses) == MOE_STEPS and all(np.isfinite(losses)),
           f"15a: losses {losses}")
     check(int(state.opt_state["step"]) == MOE_STEPS and stats.restarts == 0,
@@ -2190,7 +2348,7 @@ def moe_mesh_training(say) -> dict:
         f"{worst[1]:.3g} ({worst[0]}); losses {losses}; peak {peak:.2f} GB "
         f"({plain['peak_gb']:.2f} GB without a mesh), {MOE_STATE} moments; "
         f"{launches} flash launches ({n_attn} layer x 2 x {MOE_ACCUM} x "
-        f"{MOE_STEPS} steps)")
+        f"{MOE_STEPS} steps), {bwd} backward")
     check(loss_rel <= MESH_LOSS_REL,
           f"15a: loss {losses[0]} against {plain['loss']}")
     check(worst[1] <= MESH_LEAF_RELNORM, f"15a: leaf relnorm {worst}")
@@ -2201,7 +2359,8 @@ def moe_mesh_training(say) -> dict:
             "loss_rel": loss_rel, "worst_leaf": worst[0],
             "worst_leaf_relnorm": worst[1], "steps": steps, "peak_gb": peak,
             "flash_launches": launches,
-            "flash_launches_a_step": launches // MOE_STEPS}
+            "flash_launches_a_step": launches // MOE_STEPS,
+            "flash_bwd_launches": bwd}
 
 
 def moe_profile_child() -> None:
@@ -2222,9 +2381,10 @@ def moe_profile_child() -> None:
     state, _, _ = run_training(cfg, shape, mesh, steps=1, oc=oc,
                                accum=MOE_ACCUM, log_every=0)
     say = lambda *a: print(*a, flush=True)          # noqa: E731
-    FK.flash_attention.launches = 0
+    FK.flash_attention.launches = FK.flash_attention_bwd.launches = 0
     rep = profile_train_step(state, oc, say, mesh, (cfg, shape, MOE_ACCUM))
     rep["flash_launches"] = FK.flash_attention.launches
+    rep["flash_bwd_launches"] = FK.flash_attention_bwd.launches
     dist.destroy_process_group()
     print(json.dumps(rep))
 
@@ -2234,8 +2394,8 @@ def moe_reduced_on_mesh(say) -> float:
     microbatches of each MOE_REDUCED arch reduced, in f32, on the card
     through the 1x1 NCCL mesh (the training rules, every sharded body)
     and on the CPU with no mesh, from the same weights and batch: 13a's
-    limits on the loss and each leaf's gradient, and 13a's flash
-    launches."""
+    limits on the loss and each leaf's gradient, and 13a's flash and
+    flash backward launches."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -2273,13 +2433,15 @@ def moe_reduced_on_mesh(say) -> float:
             step = build_train_step(cfg, ctx, OptConfig(
                 schedule=cfg.lr_schedule), TRAIN_ACCUM)
             grads = []
-            before = FK.flash_attention.launches
+            before = (FK.flash_attention.launches,
+                      FK.flash_attention_bwd.launches)
             with captured_grads(grads):
                 _, opt, met = step(params, opt, {k: v.to(device)
                                                  for k, v in batch.items()})
             torch.cuda.synchronize()
             runs[device] = (met["loss"].item(), grads[0], int(opt["step"]),
-                            FK.flash_attention.launches - before)
+                            FK.flash_attention.launches - before[0],
+                            FK.flash_attention_bwd.launches - before[1])
         named = sorted({a for n in ("heads", "experts", "expert_mlp",
                                     "state_inner", "embed")
                         for a in ctx.rules[n]})
@@ -2298,12 +2460,16 @@ def moe_reduced_on_mesh(say) -> float:
         check(runs["cpu"][3] == 0 and runs["cuda"][3] == want,
               f"15b {arch}: flash launches {runs['cpu'][3]} on the CPU, "
               f"{runs['cuda'][3]} on the card, not {want}")
+        check(runs["cpu"][4] == 0 and runs["cuda"][4] == want // 2,
+              f"15b {arch}: flash backward launches {runs['cpu'][4]} on "
+              f"the CPU, {runs['cuda'][4]} on the card, not {want // 2}")
         worst = max(worst, loss_err, grad_err)
         say(f"  {arch} reduced f32 on the 1x1 mesh (rules naming {named}), "
             f"{rows} x {seq} tokens in {TRAIN_ACCUM} microbatches: loss "
             f"{runs['cuda'][0]:.6f}, card against CPU {loss_err:.3g}; "
             f"gradient relnorm worst {grad_err:.3g} ({leaf}; limit "
-            f"{REDUCED_TOL:g}); {runs['cuda'][3]} flash launches")
+            f"{REDUCED_TOL:g}); {runs['cuda'][3]} flash launches, "
+            f"{runs['cuda'][4]} backward")
     return worst
 
 
@@ -2614,16 +2780,20 @@ def trace_against_card(say, step_ms: float) -> dict:
     TRAIN_SEQ tokens in TRAIN_ACCUM microbatches, no mesh) traced on
     ``meta`` tensors by the dry-run (``dryrun.step_costs``), and one real
     step of it on the card under ``FlopCounterMode``, which does not see
-    the flash kernel's forward (a ``ctypes`` call): the trace must count
-    the card's FLOPs plus the full-square ``4 B Hq L L D`` of each flash
-    launch, which the trace counts as the plain attention.  ``step_ms``
-    is 13c's warm step."""
+    the flash kernels (``ctypes`` calls): the trace must count the card's
+    FLOPs plus the full-square ``4 B Hq L L D`` of each flash launch,
+    which the trace counts as the plain attention, plus, for each
+    backward launch, what the trace counts for ``attention_bwd_ref``
+    (``meta``'s backward) at that shape, counted here by the same
+    ``FlopCounterMode`` over ``attention_bwd_ref`` on ``meta`` tensors.
+    ``step_ms`` is 13c's warm step."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import Pipeline
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     from repro_torch.launch import dryrun as DRY
     from repro_torch.models import model as M
     from repro_torch.models import param as PM
@@ -2641,16 +2811,25 @@ def trace_against_card(say, step_ms: float) -> dict:
     opt = init_opt_state(M.model_specs(cfg), oc.state_dtype, "cuda")
     step = build_train_step(cfg, M.build_ctx(cfg), oc, TRAIN_ACCUM)
     batch = Pipeline(cfg, shape, device="cuda").next_batch()
-    FK.flash_attention.launches = 0
+    FK.flash_attention.launches = FK.flash_attention_bwd.launches = 0
     with FlopCounterMode(display=False) as fc:
         step(params, opt, batch)
     torch.cuda.synchronize()
     launches = FK.flash_attention.launches
+    bwd = FK.flash_attention_bwd.launches
     del params, opt, batch
     card = fc.get_total_flops()
-    per = 4 * (TRAIN_BATCH // TRAIN_ACCUM) * cfg.n_heads * TRAIN_SEQ ** 2 \
-        * cfg.resolved_head_dim
-    gap = trace["flops"] - (card + launches * per)
+    mb, D = TRAIN_BATCH // TRAIN_ACCUM, cfg.resolved_head_dim
+    per = 4 * mb * cfg.n_heads * TRAIN_SEQ ** 2 * D
+    (*_, causal, window, _, _), = train_flash_cases()
+    q = torch.empty((mb, cfg.n_heads, TRAIN_SEQ, D), dtype=torch.bfloat16,
+                    device="meta")
+    kv = torch.empty((mb, cfg.n_kv_heads, TRAIN_SEQ, D),
+                     dtype=torch.bfloat16, device="meta")
+    with FlopCounterMode(display=False) as fb:
+        attention_bwd_ref(q, kv, kv, q, causal=causal, window=window)
+    bwd_per = fb.get_total_flops()
+    gap = trace["flops"] - (card + launches * per + bwd * bwd_per)
     if gap:                       # the difference, op by op
         from repro_torch.costs import CostCounter
         traced, args = DRY.build_step(cfg, shape, None, accum=TRAIN_ACCUM)
@@ -2661,19 +2840,23 @@ def trace_against_card(say, step_ms: float) -> dict:
             say(f"  {op}: trace {c.flops_by_op.get(op, 0)}, card "
                 f"{got.get(op, 0)}")
     check(gap == 0, f"17b: trace {trace['flops']} FLOPs against the card's "
-          f"{card} + {launches} flash launches x {per} (a gap of {gap})")
+          f"{card} + {launches} flash launches x {per} + {bwd} backward "
+          f"launches x {bwd_per} (a gap of {gap})")
     n_params = PM.count_params(M.model_specs(cfg))
     model_flops = 6 * n_params * TRAIN_BATCH * TRAIN_SEQ
     share = trace["flops"] / (step_ms * 1e-3 * BF16_FLOPS_PER_S)
     say(f"  trace ({trace_s:.2f} s on the host): {trace['flops']} FLOPs = "
         f"the card's {card} (FlopCounterMode) + {launches} flash launches x "
-        f"{per} (4 B Hq L L D), equal; traffic {trace['traffic_bytes']} B "
-        f"(unfused), collectives {trace['collective_bytes']}")
+        f"{per} (4 B Hq L L D) + {bwd} backward launches x {bwd_per} "
+        f"(attention_bwd_ref's count), equal; traffic "
+        f"{trace['traffic_bytes']} B (unfused), collectives "
+        f"{trace['collective_bytes']}")
     say(f"  trace FLOPs over 13c's warm step ({step_ms:.1f} ms) at 989 "
         f"TFLOP/s: {share:.4f}; model FLOPs 6 N D = {model_flops} over the "
         f"trace's: {model_flops / trace['flops']:.4f}")
     return {"trace_flops": trace["flops"], "card_flops": card,
             "flash_launches": launches, "flash_forward_flops": per,
+            "flash_bwd_launches": bwd, "flash_backward_flops": bwd_per,
             "traffic_bytes": trace["traffic_bytes"],
             "collective_bytes": trace["collective_bytes"],
             "trace_s": trace_s, "step_ms": step_ms,
@@ -3187,7 +3370,8 @@ def main() -> int:
         "synth_payload differs from numpy's uint8 draw")
 
     t0 = time.perf_counter()
-    built = _build.build_all([K.SOURCE, FK.SOURCE, PK.SOURCE])
+    built = _build.build_all([K.SOURCE, FK.SOURCE, FK.BWD_SOURCE,
+                              PK.SOURCE])
     say(f"[2] nvcc for sm_90a, {len(built)} sources in parallel: "
         f"{time.perf_counter() - t0:.2f} s wall")
     for src, secs in built.items():
@@ -3197,6 +3381,7 @@ def main() -> int:
         say(f"  {lib.relative_to(ROOT)}: {secs:.2f} s; {regs}")
     for mod in (K, FK, PK):
         mod.load_library()
+    FK.load_bwd_library()
     for dt in (torch.bfloat16, torch.float32):
         for D in FK.HEAD_DIMS:
             inst = FK.describe(D, dt)
@@ -3204,6 +3389,14 @@ def main() -> int:
             if D == 64 and dt == torch.bfloat16:
                 check(inst["local_bytes"] == 0,
                       f"the bf16 D=64 flash kernel spills: {inst}")
+    for dt in (torch.bfloat16, torch.float32):
+        for D in FK.HEAD_DIMS:
+            inst = FK.bwd_describe(D, dt)
+            say(f"  flash backward {str(dt).removeprefix('torch.')} D={D}: "
+                f"{inst}")
+            if dt == torch.bfloat16:
+                check(all(k["local_bytes"] == 0 for k in inst.values()),
+                      f"the bf16 D={D} flash backward spills: {inst}")
     for dt in (torch.bfloat16, torch.float32):
         for D in PK.HEAD_DIMS:
             inst = PK.describe(D, dt)
@@ -3302,10 +3495,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     attn_err = attention_cases()
+    attn_err.update(flash_bwd_cases())
     say(f"[7] attention kernels match their plain versions at "
         f"{len(FLASH_CASES)} + {len(model_flash_cases())} (phase 12's: "
-        f"{model_flash_cases()}) flash and {len(PAGED_CASES)} paged shapes, "
-        f"f32 and bf16; max_abs_err (paged bf16 also row-relative) "
+        f"{model_flash_cases()}) flash, {len(PAGED_CASES)} paged and "
+        f"{len(FLASH_BWD_CASES)} + 2 (training) flash backward shapes, "
+        f"f32 and bf16; max_abs_err (paged and backward bf16 also "
+        f"row-relative) "
         f"{ {f'{k[0]}/{k[1]}': v for k, v in attn_err.items()} }")
     attn = attention_times()
     for name, r in attn.items():
@@ -3318,6 +3514,9 @@ def main() -> int:
             f" of the bound), SDPA on a contiguous cache "
             f"{r['contiguous_sdpa_ms']:.5f} ms (outputs differ by "
             f"{r['sdpa_row_rel_err']:.3g} row-relative)")
+        if "attention_bwd_ref_ms" in r:
+            extra = (f"; attention_bwd_ref (the training path's backward "
+                     f"before the kernel) {r['attention_bwd_ref_ms']:.5f} ms")
         say(f"  {name} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
             f"{r['plain_ms']:.5f} ms, library {lib_ms} ms, bound "
             f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} B at "
@@ -3417,6 +3616,7 @@ def main() -> int:
     training, train_state, train_oc, first_step = full_width_training(say)
     flash_by_phase["13c"] = training["flash_launches"]
     launches["flash_attention"] += training["flash_launches"]
+    bwd_by_phase = {"13c": training["flash_bwd_launches"]}
     gc.collect()
     torch.cuda.empty_cache()
     training["profile"] = profile_train_step(train_state, train_oc, say)
@@ -3432,7 +3632,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     recovery = recovery_on_card(say)
     say(f"  flash_attention launches by phase: {flash_by_phase}, in all "
-        f"{launches['flash_attention']}; {time.perf_counter() - t0:.2f} s")
+        f"{launches['flash_attention']}; flash_attention_bwd {bwd_by_phase}; "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # ---- the mesh training path, counted from 14b's start to its end -----
     import torch.distributed as dist
@@ -3451,6 +3652,7 @@ def main() -> int:
     del first_step
     flash_by_phase["14b"] = mesh_train["flash_launches"]
     launches["flash_attention"] += mesh_train["flash_launches"]
+    bwd_by_phase["14b"] = mesh_train["flash_bwd_launches"]
     gc.collect()
     torch.cuda.empty_cache()
     mesh_train["profile"] = mesh_profile(say)
@@ -3476,6 +3678,7 @@ def main() -> int:
     moe_train = moe_mesh_training(say)
     flash_by_phase["15"] = moe_train["flash_launches"]
     launches["flash_attention"] += moe_train["flash_launches"]
+    bwd_by_phase["15"] = moe_train["flash_bwd_launches"]
     gc.collect()
     torch.cuda.empty_cache()
     moe_train["profile"] = mesh_profile(say, "moe_profile_child")
@@ -3527,6 +3730,16 @@ def main() -> int:
                             for k, r in examples.items()}
     flash_by_phase["17"]["17b"] = flops_check["flash_launches"]
     launches["flash_attention"] += sum(flash_by_phase["17"].values())
+    bwd_by_phase["17"] = {k: r["launches"].get("flash_attention_bwd", 0)
+                          for k, r in examples.items()}
+    bwd_by_phase["17"]["17b"] = flops_check["flash_bwd_launches"]
+    check(bwd_by_phase["17"]["train_small"] > 0
+          and bwd_by_phase["17"]["17b"] > 0,
+          f"17: a training run launched no flash backward: "
+          f"{bwd_by_phase['17']}")
+    launches["flash_attention_bwd"] = sum(
+        sum(v.values()) if isinstance(v, dict) else v
+        for v in bwd_by_phase.values())
     for name in ("gather_chunks", "scatter_chunks"):
         n = examples["quickstart"]["launches"][name]
         check(n > 0, f"17a: {name} never launched in the quickstart")
@@ -3535,15 +3748,18 @@ def main() -> int:
           f"17: a run launched no flash kernel: {flash_by_phase['17']}")
     say(f"  17a {t1 - t0:.2f} s, 17b {time.perf_counter() - t1:.2f} s; "
         f"flash_attention launches by phase: {flash_by_phase}, in all "
-        f"{launches['flash_attention']}; chunked copy in all "
-        f"{launches['gather_chunks']} + {launches['scatter_chunks']}")
+        f"{launches['flash_attention']}; flash_attention_bwd by phase "
+        f"{bwd_by_phase}, in all {launches['flash_attention_bwd']}; chunked "
+        f"copy in all {launches['gather_chunks']} + "
+        f"{launches['scatter_chunks']}")
 
     replaces = {"gather_chunks": "src/repro/kernels/chunked_copy/kernel.py:37",
                 "scatter_chunks": "src/repro/kernels/chunked_copy/kernel.py:59",
                 "flash_attention":
                     "src/repro/kernels/flash_attention/kernel.py:65",
                 "paged_attention":
-                    "src/repro/kernels/paged_attention/kernel.py:64"}
+                    "src/repro/kernels/paged_attention/kernel.py:64",
+                "flash_attention_bwd": "src/repro/models/attention.py:92"}
     kernels = []
     for name in ("gather_chunks", "scatter_chunks"):
         r5, r64 = times[5][name], times[64][name]
@@ -3584,6 +3800,26 @@ def main() -> int:
             "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], **extra})
+    r = attn["flash_attention_bwd"]
+    keys = ("shape", "ms", "plain_ms", "attention_bwd_ref_ms", "bound_ms",
+            "bound_by", "library_ms")
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": replaces["flash_attention_bwd"],
+        "launches": launches["flash_attention_bwd"],
+        "max_abs_err": max(attn_err[("flash_attention_bwd", "float32")],
+                           attn_err[("flash_attention_bwd", "bfloat16")]),
+        "max_abs_err_f32": attn_err[("flash_attention_bwd", "float32")],
+        "max_row_rel_err_bf16": attn_err[("flash_attention_bwd",
+                                          "bfloat16 row-relative")],
+        **{k: r[k] for k in keys},
+        "replaces_what": "the gradient XLA derives for blockwise_attention "
+                         "(no Pallas backward in the JAX package)",
+        "library": "SDPA backward (autograd.grad, retain_graph)",
+        "launches_by_phase": bwd_by_phase,
+        f"{MOE_ARCH}-train": {k: attn[f"flash_attention_bwd/{MOE_ARCH}-train"][k]
+                              for k in keys}})
     say(json.dumps({"serving": full, "full_models": models}))
     say(json.dumps({"training": {
         "reduced_worst_err": train_reduced, "gradient": gradient,

@@ -109,7 +109,8 @@ def main(argv=None):
     print(json.dumps({"train_small": {
         "first_loss": first, "last_loss": last, "step": res["step"],
         "resumed_from": res["resumed_from"],
-        "launches": {"flash_attention": FK.flash_attention.launches}}}))
+        "launches": {"flash_attention": FK.flash_attention.launches,
+                     "flash_attention_bwd": FK.flash_attention_bwd.launches}}}))
 
 
 if __name__ == "__main__":

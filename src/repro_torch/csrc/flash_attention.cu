@@ -58,6 +58,15 @@
 // Lkv are handled in the kernel; there is no multiple-of-128 requirement
 // (that was the TPU's tiling).
 //
+// Statistics for the backward.  Given a pointer, each kernel also writes
+// every row's log-sum-exp of its scaled, masked scores in f32, natural log,
+// (B, Hq, Lq): stats = m + log(l), from the bf16 kernel's log2-domain m and
+// l as (m + log2 l) ln 2.  A row that sees no key gets exactly NEG_INF
+// instead: there m = NEG_INF absorbs log l in f32, so a single log-sum-exp
+// could not say that its l counts Lkv uniform weights; the backward reads
+// the marker as that uniform average (csrc/flash_attention_bwd.cu).  With a
+// null pointer (serving) nothing else changes: the output is the same bits.
+//
 // The launch goes on the caller's stream; the entry point returns
 // cudaGetLastError().
 #include <cuda_bf16.h>
@@ -74,6 +83,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* stats;                     // (B, Hq, Lq) or null
   int Hq, Hkv, Lq, Lkv;
   int causal, window, q_offset, kv_offset;
   float scale;
@@ -153,6 +163,7 @@ __global__ void __launch_bounds__(THREADS) flash_f32(const Params p) {
   const float* k = static_cast<const float*>(p.k) + kv_base;
   const float* v = static_cast<const float*>(p.v) + kv_base;
   float* o = static_cast<float*>(p.o) + ((int64_t)bh * p.Lq + q0) * D;
+  float* stats = p.stats ? p.stats + (int64_t)bh * p.Lq + q0 : nullptr;
 
   for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
     Qs[i] = i / D < nq ? q[i] : 0.f;
@@ -243,6 +254,9 @@ __global__ void __launch_bounds__(THREADS) flash_f32(const Params p) {
       for (int x = 0; x < DPL; ++x) {
         const int d = lane + 32 * x;
         if (d < D) o[(int64_t)r * D + d] = acc[rr][x] / den;
+      }
+      if (stats && lane == 0) {
+        stats[r] = m[rr] <= 0.5f * NEG_INF ? NEG_INF : m[rr] + logf(l[rr]);
       }
     }
   }
@@ -491,6 +505,7 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(const Params p) {
   const bf16* k = static_cast<const bf16*>(p.k) + kv_base;
   const bf16* v = static_cast<const bf16*>(p.v) + kv_base;
   bf16* o = static_cast<bf16*>(p.o) + ((int64_t)bh * p.Lq + q0) * D;
+  float* stats = p.stats ? p.stats + (int64_t)bh * p.Lq + q0 : nullptr;
 
   // The kv tiles the block visits; every warp of a warpgroup takes part in
   // each wgmma, so a warp's 16 rows are masked per element, not skipped.
@@ -667,7 +682,16 @@ __global__ void __launch_bounds__(THREADS) flash_bf16(const Params p) {
   // rows of Qs (only this warp read them), stored as 16-byte rows.
   float inv[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    const float lsum = quad_sum(l[r]);
+    inv[r] = 1.f / fmaxf(lsum, 1e-30f);
+    const int row = w0 + g + 8 * r;
+    if (stats && t4 == 0 && row < nq) {
+      stats[row] = m[r] <= 0.5f * NEG_INF
+                       ? NEG_INF
+                       : (m[r] + log2f(lsum)) * 0.6931471805599453f;
+    }
+  }
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + 2 * t4;
@@ -761,13 +785,14 @@ extern "C" {
 // q (B, Hq, Lq, D), k and v (B, Hkv, Lkv, D), o like q; contiguous, one
 // dtype (is_bf16: bf16, else f32), bf16 pointers 16-byte aligned.  D in
 // {16, 32, 64, 128}; Hq % Hkv == 0; Lq, Lkv >= 1; B * Hq < 2^31 and
-// ceil(Lq / 64) < 65536.
-int fa_forward(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int Lq, int Lkv, int D, int is_bf16,
-               int causal, int window, int q_offset, int kv_offset,
-               void* stream) {
-  Params p{q, k, v, o, Hq, Hkv, Lq, Lkv, causal, window, q_offset, kv_offset,
-           1.0f / sqrtf((float)D)};
+// ceil(Lq / 64) < 65536.  stats: null, or f32 (B, Hq, Lq) for the rows'
+// log-sum-exp (see the note above).
+int fa_forward(const void* q, const void* k, const void* v, void* o,
+               float* stats, int B, int Hq, int Hkv, int Lq, int Lkv, int D,
+               int is_bf16, int causal, int window, int q_offset,
+               int kv_offset, void* stream) {
+  Params p{q, k, v, o, stats, Hq, Hkv, Lq, Lkv, causal, window, q_offset,
+           kv_offset, 1.0f / sqrtf((float)D)};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch<true>(p, B, D, st) : dispatch<false>(p, B, D, st);
 }

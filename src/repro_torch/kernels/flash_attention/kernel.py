@@ -1,9 +1,12 @@
-"""Hand-written CUDA prefill attention for Hopper, bound with ctypes.
+"""Hand-written CUDA prefill attention and its gradient for Hopper,
+bound with ctypes.
 
-The kernel lives in ``src/repro_torch/csrc/flash_attention.cu`` (see the
-note there for what it replaces and what bounds it) and is built by
-``kernels/_build.py`` at first use.  ``flash_attention.launches`` counts
-its launches.
+The forward lives in ``src/repro_torch/csrc/flash_attention.cu``, the
+backward in ``src/repro_torch/csrc/flash_attention_bwd.cu`` (see the notes
+there for what they replace and what bounds them); ``kernels/_build.py``
+builds each into its own library at first use.
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
+their calls' launches.
 """
 from __future__ import annotations
 
@@ -14,10 +17,13 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = "flash_attention.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 _I = ctypes.c_int
 _P = ctypes.c_void_p
-_SIGNATURES = (("fa_forward", (_P, _P, _P, _P) + (_I,) * 11 + (_P,)),
+_SIGNATURES = (("fa_forward", (_P,) * 5 + (_I,) * 11 + (_P,)),
                ("fa_describe", (_I, _I, _P)))
+_BWD_SIGNATURES = (("fa_backward", (_P,) * 9 + (_I,) * 11 + (_P,)),
+                   ("fa_bwd_describe", (_I, _I, _I, _P)))
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 _BQ = 64            # query rows per block, both kernels (the .cu's BQ)
@@ -29,9 +35,12 @@ def load_library() -> ctypes.CDLL:
     return _build.load(SOURCE, _SIGNATURES)
 
 
-def check_inputs(q, k, v, window: int) -> None:
-    """Raise ValueError for what the kernel does not take."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def load_bwd_library() -> ctypes.CDLL:
+    return _build.load(BWD_SOURCE, _BWD_SIGNATURES)
+
+
+def _check_tensors(q, named) -> None:
+    for name, t in named:
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.device != q.device:
@@ -45,6 +54,11 @@ def check_inputs(q, k, v, window: int) -> None:
         if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary "
                              "(the bf16 kernel copies 16-byte rows)")
+
+
+def check_inputs(q, k, v, window: int) -> None:
+    """Raise ValueError for what the kernel does not take."""
+    _check_tensors(q, (("q", q), ("k", k), ("v", v)))
     B, Hq, Lq, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
@@ -64,26 +78,81 @@ def check_inputs(q, k, v, window: int) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: int = 0, kv_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, kv_offset: int = 0,
+                    return_stats: bool = False):
     """q: (B, Hq, Lq, D); k, v: (B, Hkv, Lkv, D), contiguous CUDA tensors
-    of one dtype (f32 or bf16).  Returns (B, Hq, Lq, D) in q's dtype."""
+    of one dtype (f32 or bf16).  Returns (B, Hq, Lq, D) in q's dtype; with
+    ``return_stats`` also the rows' softmax statistics, f32 (B, Hq, Lq):
+    the log-sum-exp of each row's scaled, masked scores, NEG_INF where the
+    row sees no key (``ref.attention_stats_ref``), which
+    ``flash_attention_bwd`` reads."""
     check_inputs(q, k, v, window)
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    B, Hq, Lq, D = q.shape
-    Hkv, Lkv = k.shape[1], k.shape[2]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = load_library().fa_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv,
-        Lq, Lkv, D, int(q.dtype == torch.bfloat16), int(bool(causal)),
-        int(window), int(q_offset), int(kv_offset), stream)
-    _build.check(err, "flash_attention")
-    flash_attention.launches += 1
-    return out
+    stats = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) \
+        if return_stats else None
+    if out.numel():
+        B, Hq, Lq, D = q.shape
+        Hkv, Lkv = k.shape[1], k.shape[2]
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = load_library().fa_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if stats is None else stats.data_ptr(), B, Hq, Hkv, Lq, Lkv,
+            D, int(q.dtype == torch.bfloat16), int(bool(causal)),
+            int(window), int(q_offset), int(kv_offset), stream)
+        _build.check(err, "flash_attention")
+        flash_attention.launches += 1
+    return (out, stats) if return_stats else out
 
 
 flash_attention.launches = 0
+
+
+def check_bwd_inputs(q, k, v, do, stats, window: int) -> None:
+    """Raise ValueError for what the backward kernel does not take."""
+    check_inputs(q, k, v, window)
+    if -(-k.shape[2] // _BQ) >= 2 ** 16:
+        raise ValueError(f"Lkv={k.shape[2]} exceeds the backward's grid")
+    _check_tensors(q, (("do", do),))
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if (stats.device != q.device or stats.dtype != torch.float32
+            or stats.shape != q.shape[:3] or not stats.is_contiguous()):
+        raise ValueError(f"stats must be a contiguous f32 {tuple(q.shape[:3])}"
+                         f" tensor on {q.device}, got {stats.dtype} "
+                         f"{tuple(stats.shape)} on {stats.device}")
+
+
+def flash_attention_bwd(q, k, v, do, stats, *, causal: bool = True,
+                        window: int = 0, q_offset: int = 0,
+                        kv_offset: int = 0):
+    """The gradient of ``flash_attention`` for the output gradient ``do``:
+    (dq, dk, dv) in the inputs' dtype.  q, do: (B, Hq, Lq, D); k, v:
+    (B, Hkv, Lkv, D), contiguous CUDA tensors of one dtype (f32 or bf16);
+    stats: the forward's f32 (B, Hq, Lq) statistics (``return_stats``).
+    The output is not an input: delta = rowsum(P o dP) is taken from the
+    scores (the note in ``csrc/flash_attention_bwd.cu`` says why).  One
+    call launches two kernels on the current stream (dq, then dk and dv);
+    deterministic, no atomics."""
+    check_bwd_inputs(q, k, v, do, stats, window)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    B, Hq, Lq, D = q.shape
+    Hkv, Lkv = k.shape[1], k.shape[2]
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = load_bwd_library().fa_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        stats.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, Hq, Hkv, Lq, Lkv, D, int(q.dtype == torch.bfloat16),
+        int(bool(causal)), int(window), int(q_offset), int(kv_offset), stream)
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
 
 
 def describe(head_dim: int, dtype) -> dict:
@@ -95,3 +164,16 @@ def describe(head_dim: int, dtype) -> dict:
         int(head_dim), int(dtype == torch.bfloat16), out)
     _build.check(err, "flash_attention.describe")
     return dict(zip(_DESCRIBE, out))
+
+
+def bwd_describe(head_dim: int, dtype) -> dict:
+    """``describe`` for the backward's two kernels: {"dq": {...},
+    "dkdv": {...}} ("block_rows" is the tile's query rows or keys)."""
+    res = {}
+    for which, name in enumerate(("dq", "dkdv")):
+        out = (ctypes.c_int * len(_DESCRIBE))()
+        err = load_bwd_library().fa_bwd_describe(
+            int(head_dim), int(dtype == torch.bfloat16), which, out)
+        _build.check(err, "flash_attention_bwd.describe")
+        res[name] = dict(zip(_DESCRIBE, out))
+    return res

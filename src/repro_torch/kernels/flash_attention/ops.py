@@ -2,18 +2,24 @@
 takes the plain version (``ref.py``), which autograd differentiates; any
 other tensor goes to the CUDA kernel, which launches or raises.  Where
 a gradient is wanted, the kernel runs under ``FlashAttention``, whose
-backward is the plain blockwise gradient (``ref.attention_bwd_ref``):
-the JAX package has no backward kernel either (XLA differentiates its
-``jnp`` scan).  There is no fallback.  A ``meta`` tensor, which holds no
-data (the dry-run's cost trace), takes the plain version in the
-kernel's place, under ``FlashAttention`` too: its products are the
-full-matrix ``4 B Hq Lq Lkv D`` FLOPs the JAX package's dry-run
-counts."""
+backward is the hand-written backward kernel (``flash_attention_bwd``),
+from the softmax statistics the forward kept: the JAX
+package has no backward kernel (XLA differentiates its ``jnp`` scan),
+and this is the counterpart of that compiled gradient.  There is no
+fallback.  A ``meta`` tensor, which holds no data (the dry-run's cost
+trace), takes the plain versions in the kernels' place, under
+``FlashAttention`` too: its products are the full-matrix
+``4 B Hq Lq Lkv D`` FLOPs the JAX package's dry-run counts forward, and
+``attention_bwd_ref``'s backward.
+"""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention,
+    flash_attention_bwd,
+)
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_ref,
     attention_ref,
@@ -21,21 +27,30 @@ from repro_torch.kernels.flash_attention.ref import (
 
 
 class FlashAttention(torch.autograd.Function):
-    """The kernel's forward under autograd.  It saves q, k and v, not the
-    output or the softmax statistics: the backward recomputes attention
-    block by block from them."""
+    """The kernel's forward under autograd.  It saves q, k, v and the rows'
+    softmax statistics; the backward kernel rebuilds the softmax tile by
+    tile from them.  On ``meta`` it saves q, k and v for
+    ``attention_bwd_ref``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, kv_offset):
         ctx.kw = dict(causal=causal, window=window, q_offset=q_offset,
                       kv_offset=kv_offset)
-        ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, **ctx.kw)
+        if q.device.type == "meta":
+            ctx.save_for_backward(q, k, v)
+            return attention_ref(q, k, v, **ctx.kw)
+        out, stats = flash_attention(q, k, v, return_stats=True, **ctx.kw)
+        ctx.save_for_backward(q, k, v, stats)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = attention_bwd_ref(q, k, v, do, **ctx.kw)
+        if do.device.type == "meta":
+            dq, dk, dv = attention_bwd_ref(*ctx.saved_tensors, do, **ctx.kw)
+        else:
+            q, k, v, stats = ctx.saved_tensors
+            dq, dk, dv = flash_attention_bwd(q, k, v, do.contiguous(), stats,
+                                             **ctx.kw)
         return dq, dk, dv, None, None, None, None
 
 

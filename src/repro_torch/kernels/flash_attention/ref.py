@@ -4,9 +4,13 @@ A twin of ``src/repro/kernels/flash_attention/ref.py`` with the query
 and key position offsets that ``blockwise_attention`` takes.  It is the
 CPU path of ``ops.attention`` and the yardstick the CUDA kernel is held
 against on the card.  Scores and softmax are f32 whatever the inputs'
-dtype; the output is cast to q's dtype.  ``attention_bwd_ref`` is its
-gradient, block by block: the backward of the kernel's autograd
-``ops.FlashAttention``.
+dtype; the output is cast to q's dtype.  Beside it, the plain versions
+of the gradient: ``attention_bwd_ref``, autograd block by block (the
+backward ``ops.FlashAttention`` takes on ``meta`` tensors, the dry-run's
+trace), and ``attention_stats_ref`` / ``attention_bwd_from_stats_ref``,
+the forward's softmax statistics and the gradient from them, walking the
+tiles of ``csrc/flash_attention_bwd.cu`` as it does (what the kernel is
+held against on the card).
 """
 from __future__ import annotations
 
@@ -17,23 +21,36 @@ import torch
 NEG_INF = -1e30
 
 
-def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  q_offset: int = 0, kv_offset: int = 0):
-    """q: (B, Hq, Lq, D); k, v: (B, Hkv, Lkv, D).  Returns (B, Hq, Lq, D)."""
-    B, Hq, Lq, D = q.shape
-    _, Hkv, Lkv, _ = k.shape
-    group = Hq // Hkv
-    qg = q.reshape(B, Hkv, group, Lq, D).float()
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) / math.sqrt(D)
-    q_pos = q_offset + torch.arange(Lq, device=q.device)[:, None]
-    k_pos = kv_offset + torch.arange(Lkv, device=q.device)[None, :]
-    mask = torch.ones((Lq, Lkv), dtype=torch.bool, device=q.device)
+def _mask(q_pos, k_pos, causal: bool, window: int):
+    """(Lq, Lkv) bool: the pairs each query sees, for query positions
+    ``q_pos`` (Lq, 1) and key positions ``k_pos`` (1, Lkv)."""
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[1]), dtype=torch.bool,
+                      device=q_pos.device)
     if causal:
         mask = mask & (k_pos <= q_pos)
     if window:
         mask = mask & (k_pos > q_pos - window)
-    s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    return mask
+
+
+def _scores(q, k, causal, window, q_offset, kv_offset):
+    """f32 scaled scores (B, Hkv, G, Lq, Lkv) and the (Lq, Lkv) mask of
+    the pairs each query sees."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, Lq, D).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) / math.sqrt(D)
+    q_pos = q_offset + torch.arange(Lq, device=q.device)[:, None]
+    k_pos = kv_offset + torch.arange(Lkv, device=q.device)[None, :]
+    return s, _mask(q_pos, k_pos, causal, window)
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                  q_offset: int = 0, kv_offset: int = 0):
+    """q: (B, Hq, Lq, D); k, v: (B, Hkv, Lkv, D).  Returns (B, Hq, Lq, D)."""
+    B, Hq, Lq, D = q.shape
+    s, mask = _scores(q, k, causal, window, q_offset, kv_offset)
+    p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(B, Hq, Lq, D).to(q.dtype)
 
@@ -82,3 +99,100 @@ def attention_bwd_ref(q, k, v, do, *, causal: bool = True, window: int = 0,
             dk[:, :, lo:hi] += gk
             dv[:, :, lo:hi] += gv
     return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+#: the backward kernels' tiles: query rows, keys
+BQ = BK = 64
+
+
+def _key_range(qp_first: int, qp_last: int, Lkv: int, causal: bool,
+               window: int, kv_offset: int) -> tuple[int, int, bool]:
+    """The kernels' ``key_range``: keys [lo, hi) hold every key that some
+    row at positions [qp_first, qp_last] sees, and ``blind`` says that
+    some row of them sees none (then the range is every key)."""
+    blind = bool((causal and qp_first < kv_offset) or
+                 (window and qp_last - window + 1 - kv_offset > Lkv - 1))
+    lo, hi = 0, Lkv
+    if not blind:
+        if causal:
+            hi = min(hi, qp_last - kv_offset + 1)
+        if window:
+            lo = max(lo, qp_first - window + 1 - kv_offset)
+    return lo, hi, blind
+
+
+def key_tiles(qt: int, Lq: int, Lkv: int, *, causal: bool = True,
+              window: int = 0, q_offset: int = 0,
+              kv_offset: int = 0) -> tuple[int, int]:
+    """The key tiles [t_lo, t_hi) that query tile ``qt`` visits in both
+    backward kernels: its key range by whole tiles of BK keys.  The dk/dv
+    kernel visits query tile ``qt`` from key tile ``kt`` iff
+    ``t_lo <= kt < t_hi``."""
+    q0 = qt * BQ
+    qp = q_offset + q0
+    lo, hi, _ = _key_range(qp, qp + min(BQ, Lq - q0) - 1, Lkv, causal,
+                           window, kv_offset)
+    return lo // BK, -(-hi // BK)
+
+
+def attention_stats_ref(q, k, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, kv_offset: int = 0):
+    """The forward kernel's softmax statistics, f32 (B, Hq, Lq): each row's
+    log-sum-exp of its scaled scores over the keys it sees (natural log),
+    exactly NEG_INF for a row that sees no key."""
+    B, Hq, Lq, _ = q.shape
+    s, mask = _scores(q, k, causal, window, q_offset, kv_offset)
+    lse = torch.logsumexp(s.masked_fill(~mask, NEG_INF), dim=-1)
+    lse = lse.masked_fill(~mask.any(-1), NEG_INF)
+    return lse.reshape(B, Hq, Lq)
+
+
+def attention_bwd_from_stats_ref(q, k, v, do, stats, *,
+                                 causal: bool = True, window: int = 0,
+                                 q_offset: int = 0, kv_offset: int = 0):
+    """The gradient of ``attention_ref`` from the forward's statistics
+    ``stats`` (``attention_stats_ref``), as ``csrc/flash_attention_bwd.cu``
+    computes it, in f32: (dq, dk, dv) in the inputs' dtypes.
+
+    It walks the kernels' tiles with their skip rule: each tile of BQ
+    query rows against the key tiles ``key_tiles`` gives it, taken as one
+    slab of keys (the 64 x 64 tiles of one query tile side by side).  P is
+    rebuilt as exp(S - stats) on the keys a row sees; a row whose stats
+    are NEG_INF (it sees no key) has P = 1/Lkv on every key; dS = P (dP -
+    delta) with delta = rowsum(P o dP) over the row's keys, and 0 in a row
+    that sees one key or none (P does not depend on its scores)."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg, dog = (t.reshape(B, Hkv, G, Lq, D).float() for t in (q, do))
+    kf, vf = k.float(), v.float()
+    lse = stats.reshape(B, Hkv, G, Lq, 1).float()
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_offset=kv_offset)
+    for qt in range(-(-Lq // BQ)):
+        i0, i1 = qt * BQ, min(Lq, qt * BQ + BQ)
+        t_lo, t_hi = key_tiles(qt, Lq, Lkv, **kw)
+        j0, j1 = t_lo * BK, min(Lkv, t_hi * BK)
+        # the slab holds every key its rows see
+        seen = _mask(q_offset + torch.arange(i0, i1, device=q.device)[:, None],
+                     kv_offset + torch.arange(j0, j1, device=q.device)[None, :],
+                     causal, window)
+        kb, vb = kf[:, :, j0:j1], vf[:, :, j0:j1]
+        qb, dob = qg[..., i0:i1, :], dog[..., i0:i1, :]
+        lb = lse[..., i0:i1, :]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qb, kb) * scale
+        p = torch.where(seen, torch.exp(s - lb), 0.0)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dob, vb)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        blind = lb < 0.5 * NEG_INF
+        p = torch.where(blind, 1.0 / Lkv, p)
+        ds = torch.where(seen.sum(-1, keepdim=True) <= 1, 0.0, ds)
+        dq[..., i0:i1, :] += torch.einsum("bhgqk,bhkd->bhgqd", ds, kb) * scale
+        dk[:, :, j0:j1] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qb) * scale
+        dv[:, :, j0:j1] += torch.einsum("bhgqk,bhgqd->bhkd", p, dob)
+    return (dq.reshape(B, Hq, Lq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

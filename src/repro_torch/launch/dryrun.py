@@ -36,7 +36,10 @@ They mean what the reference's ``hlo_analysis`` fields mean, per device
 and loop-aware, but count the port's program: the attention is the
 plain full-matrix product on ``meta`` (the reference's ``jnp``
 blockwise attention, ``4 B Hq Lq Lkv D`` forward), its backward the
-port's ``attention_bwd_ref``; a collective over several mesh axes is one
+plain ``attention_bwd_ref`` that ``meta`` keeps in place of the card's
+``flash_attention_bwd`` kernel (its blockwise recompute and autograd:
+the visible pairs' ``Q K^T`` and ``P V`` again, then four products); a
+collective over several mesh axes is one
 collective per axis (``mesh._steps``) where GSPMD makes one over all of
 them; a sharded body's collectives stand where the port calls them.
 The reference's ``xla_*_scan_once`` fields and XLA's memory analysis

@@ -190,15 +190,33 @@ def test_rope_matches_reference(positions):
 
 def test_non_cpu_tensor_never_falls_back(monkeypatch):
     """A tensor off the CPU goes to the kernel wrapper: there is no silent
-    plain-version arm.  The one exception is
+    plain-version arm, forward or backward.  The one exception is
     a ``meta`` tensor, which holds no data (the dry-run's cost trace): it
-    takes the plain version.  The CUDA tensors here are fake (shapes on
-    this CPU build) and the wrappers stand-ins that raise."""
+    takes the plain versions.  The CUDA tensors here are fake (shapes on
+    this CPU build) and the wrappers stand-ins that raise; under grad the
+    forward stand-in returns an output and statistics, and the backward
+    reaches the backward kernel's stand-in, never ``attention_bwd_ref``."""
+    from types import SimpleNamespace
+
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     def kernel(*args, **kw):
         raise ValueError("the CUDA kernel was called")
+
+    def forward(q, k, v, return_stats=False, **kw):
+        calls.append("forward")
+        return q.new_empty(q.shape), q.new_empty(q.shape[:3],
+                                                 dtype=torch.float32)
+
+    def backward(q, k, v, do, stats, **kw):
+        calls.append("backward")
+        assert do.shape == q.shape and stats.shape == q.shape[:3]
+        raise ValueError("the CUDA backward kernel was called")
+
+    def plain_backward(*args, **kw):
+        raise AssertionError("attention_bwd_ref on a CUDA tensor")
     monkeypatch.setattr(tflash, "flash_attention", kernel)
+    monkeypatch.setattr(tflash, "attention_bwd_ref", plain_backward)
     monkeypatch.setattr(tpaged, "paged_attention", kernel)
     with FakeTensorMode():
         q = torch.empty((1, 2, 8, 16), device="cuda")
@@ -206,12 +224,33 @@ def test_non_cpu_tensor_never_falls_back(monkeypatch):
         pages = torch.empty((2, 8, 2, 16), device="cuda")
         ids = torch.empty((1, 2), dtype=torch.int32, device="cuda")
         lens = torch.empty((1,), dtype=torch.int32, device="cuda")
+        leaf = torch.empty((1, 2, 8, 16), device="cuda", requires_grad=True)
     with pytest.raises(ValueError, match="CUDA"):
         tflash.attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         tpaged.attention(qd, pages, pages, ids, lens)
+    # the Function's forward and backward are called as autograd calls
+    # them, without its graph: this CPU build cannot give a fake CUDA leaf
+    # a gradient accumulator
+    calls = []
+    ctx = SimpleNamespace(
+        save_for_backward=lambda *t: setattr(ctx, "saved_tensors", t))
+    monkeypatch.setattr(tflash, "flash_attention", forward)
+    monkeypatch.setattr(tflash, "flash_attention_bwd", backward)
+    monkeypatch.setattr(tflash.FlashAttention, "apply",
+                        lambda *a: tflash.FlashAttention.forward(ctx, *a))
+    out = tflash.attention(leaf, leaf, leaf)
+    assert calls == ["forward"] and len(ctx.saved_tensors) == 4
+    with pytest.raises(ValueError, match="CUDA backward"):
+        tflash.FlashAttention.backward(ctx, out)
+    assert calls == ["forward", "backward"]
+    monkeypatch.undo()
     m = torch.empty((1, 2, 8, 16), device="meta")
     assert tflash.attention(m, m, m).shape == m.shape
+    ml = m.clone().requires_grad_()
+    (g,) = torch.autograd.grad(tflash.attention(ml, ml, ml), ml,
+                               torch.empty_like(m))
+    assert g.shape == m.shape and g.device.type == "meta"
     md = torch.empty((1, 2, 16), device="meta")
     mp = torch.empty((2, 8, 2, 16), device="meta")
     assert tpaged.attention(

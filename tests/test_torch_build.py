@@ -44,3 +44,27 @@ def test_flash_wrapper_rejects_cpu_tensors_before_building():
     q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         FK.flash_attention(q, q, q)
+
+
+def test_flash_bwd_wrapper_rejects_cpu_tensors_before_building():
+    q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    stats = torch.zeros((1, 2, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        FK.flash_attention_bwd(q, q, q, q, stats)
+
+
+@pytest.mark.parametrize("source,signatures", [
+    (FK.SOURCE, FK._SIGNATURES), (FK.BWD_SOURCE, FK._BWD_SIGNATURES)])
+def test_ctypes_signatures_match_the_sources(source, signatures):
+    """Each entry point's ctypes argument list has the C function's
+    length, pointers where the C side takes pointers: a short list would
+    pass the stream as an int on the card."""
+    import ctypes
+    import re
+    text = (_build.CSRC / source).read_text()
+    for name, argtypes in signatures:
+        params = re.search(rf"int {name}\(([^)]*)\)", text).group(1)
+        c_args = [a.strip() for a in params.split(",")]
+        assert len(c_args) == len(argtypes), name
+        for c_arg, t in zip(c_args, argtypes):
+            assert ("*" in c_arg) == (t is ctypes.c_void_p), (name, c_arg)

@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _flashcases import BWD_CASES  # noqa: E402
 from repro_torch.core import topology as ttopo  # noqa: E402
 from repro_torch.core.backend_torch import (  # noqa: E402
     TorchBackend,
@@ -425,6 +426,10 @@ def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((1, 2, 8, 64), device=cuda_device)
     with pytest.raises(ValueError, match="dtype"):
         FK.flash_attention(q, q.half(), q.half())
+    with pytest.raises(ValueError, match="stats"):
+        FK.flash_attention_bwd(q, q, q, q, torch.zeros_like(q[..., 0]).double())
+    with pytest.raises(ValueError, match="does not match"):
+        FK.flash_attention_bwd(q, q, q, q[:, :1], torch.zeros_like(q[..., 0]))
     pages = torch.zeros((2, 8, 2, 64), device=cuda_device)
     with pytest.raises(ValueError, match="int32"):
         PK.paged_attention(torch.zeros((1, 2, 64), device=cuda_device),
@@ -474,36 +479,52 @@ def _assert_rows_close(got, want, dtype):
     assert float(rel.max()) <= 2 ** -6, float(rel.max())
 
 
+# (B, Hq, Hkv, Lq, Lkv, causal, window, q_offset, kv_offset): the CPU
+# tests' gradient cases (tests/_flashcases.py) without their head dim,
+# then longer causal, windowed and GQA ones
+CARD_BWD_CASES = [c[:5] + c[6:] for c in BWD_CASES] + [
+    (2, 4, 4, 600, 600, True, 0, 0, 0),     # causal, L off the 512-row block
+    (1, 4, 4, 700, 700, True, 128, 0, 0),   # sliding window
+    (1, 12, 2, 512, 512, True, 0, 0, 0),    # GQA group 6
+]
+
+
+def _bwd_inputs(case, D, dtype, device):
+    B, Hq, Hkv, Lq, Lkv, causal, window, qo, ko = case
+    kw = dict(causal=causal, window=window, q_offset=qo, kv_offset=ko)
+    gen = torch.Generator(device=device).manual_seed(Lq * D + Lkv + Hq)
+    q, k, v, do = (torch.randn(s, generator=gen, device=device).to(dtype)
+                   for s in ((B, Hq, Lq, D), (B, Hkv, Lkv, D),
+                             (B, Hkv, Lkv, D), (B, Hq, Lq, D)))
+    return (q, k, v, do), kw
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("case", [
-    # (B, Hq, Hkv, L, causal, window)
-    (2, 4, 4, 600, True, 0),            # causal, L off the 512-row block
-    (1, 4, 4, 700, True, 128),          # sliding window
-    (1, 12, 2, 512, True, 0),           # GQA group 6
-])
-def test_flash_backward_matches_autograd_on_card(cuda_device, case, D, dtype):
-    """The kernel under ``ops.FlashAttention`` (one launch a forward) and
-    its blockwise plain backward against autograd of ``attention_ref``
-    on the same card."""
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", CARD_BWD_CASES, ids=str)
+def test_flash_backward_matches_autograd_on_card(cuda_device, case, D, dtype,
+                                                 monkeypatch):
+    """The kernels under ``ops.FlashAttention`` (one forward launch, one
+    backward launch a call; ``attention_bwd_ref`` patched to raise)
+    against autograd of ``attention_ref`` on the same card."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    B, Hq, Hkv, L, causal, window = case
-    kw = dict(causal=causal, window=window)
-    gen = torch.Generator(device=cuda_device).manual_seed(L * D + Hq)
-    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
-               for s in ((B, Hq, L, D), (B, Hkv, L, D), (B, Hkv, L, D)))
-    do = torch.randn((B, Hq, L, D), generator=gen,
-                     device=cuda_device).to(dtype)
+
+    def plain(*a, **kw):
+        raise AssertionError("attention_bwd_ref on the card")
+    monkeypatch.setattr(ops, "attention_bwd_ref", plain)
+    (q, k, v, do), kw = _bwd_inputs(case, D, dtype, cuda_device)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    before = FK.flash_attention.launches
+    fwd, bwd = FK.flash_attention.launches, FK.flash_attention_bwd.launches
     out = ops.attention(*leaves, **kw)
-    assert FK.flash_attention.launches == before + 1
+    assert FK.flash_attention.launches == fwd + 1
     assert out.grad_fn is not None and out.dtype == dtype
     got = torch.autograd.grad(out, leaves, do)
-    assert FK.flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    assert FK.flash_attention.launches == fwd + 1
+    assert FK.flash_attention_bwd.launches == bwd + 1
     ref = [t.clone().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(attention_ref(*ref, **kw), ref, do)
     for g, w in zip(got, want):
@@ -512,13 +533,68 @@ def test_flash_backward_matches_autograd_on_card(cuda_device, case, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", CARD_BWD_CASES, ids=str)
+def test_flash_backward_matches_plain_on_card(cuda_device, case, D, dtype):
+    """The forward's statistics against ``attention_stats_ref`` (rows that
+    see no key exactly NEG_INF), and the backward kernel against
+    ``attention_bwd_from_stats_ref`` on the kernel's own statistics."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        NEG_INF, attention_bwd_from_stats_ref, attention_stats_ref)
+    (q, k, v, do), kw = _bwd_inputs(case, D, dtype, cuda_device)
+    _, stats = FK.flash_attention(q, k, v, return_stats=True, **kw)
+    want_stats = attention_stats_ref(q, k, **kw)
+    blind = want_stats == NEG_INF
+    assert torch.equal(stats == NEG_INF, blind)
+    torch.testing.assert_close(stats[~blind], want_stats[~blind],
+                               atol=1e-4, rtol=0)
+    got = FK.flash_attention_bwd(q, k, v, do, stats, **kw)
+    want = attention_bwd_from_stats_ref(q, k, v, do, stats, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        _assert_rows_close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 12, 2, 1000, 1000, True, 0, 0, 0),
+                                  (1, 8, 8, 300, 700, True, 100, 400, 0)],
+                         ids=str)
+def test_flash_backward_is_deterministic(cuda_device, case, dtype):
+    """No atomics: two calls on the same inputs are bit-equal."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    for D in (64, 128):
+        (q, k, v, do), kw = _bwd_inputs(case, D, dtype, cuda_device)
+        _, stats = FK.flash_attention(q, k, v, return_stats=True, **kw)
+        a = FK.flash_attention_bwd(q, k, v, do, stats, **kw)
+        b = FK.flash_attention_bwd(q, k, v, do, stats, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_forward_stats_leave_output_bit_equal(cuda_device, D, dtype):
+    """The serving path passes no statistics pointer: its output is the
+    same bits as the training path's, which writes the statistics."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    for case in CARD_BWD_CASES:
+        (q, k, v, _), kw = _bwd_inputs(case, D, dtype, cuda_device)
+        plain = FK.flash_attention(q, k, v, **kw)
+        out, _ = FK.flash_attention(q, k, v, return_stats=True, **kw)
+        assert torch.equal(plain, out), case
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["minicpm-2b", "jamba-1.5-large-398b"])
 def test_train_step_on_card_matches_cpu(cuda_device, arch):
     """One accum-2 train step of the reduced arch in f32 from the same
     weights on the card (the flash kernel under autograd) and on the
     CPU: loss within 1e-4 and every parameter within 1e-5 after the
-    update; two flash launches (forward, recompute) per attention layer
-    and microbatch."""
+    update; two flash launches (forward, recompute) and one backward
+    launch per attention layer and microbatch."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -542,13 +618,15 @@ def test_train_step_on_card_matches_cpu(cuda_device, arch):
         opt = init_opt_state(M.model_specs(cfg), "f32", device)
         step = build_train_step(cfg, M.build_ctx(cfg),
                                 OptConfig(schedule=cfg.lr_schedule), 2)
-        before = FK.flash_attention.launches
+        before = (FK.flash_attention.launches,
+                  FK.flash_attention_bwd.launches)
         params, opt, m = step(params, opt, {k: v.to(device)
                                             for k, v in batch.items()})
-        launched = FK.flash_attention.launches - before
+        launched = (FK.flash_attention.launches - before[0],
+                    FK.flash_attention_bwd.launches - before[1])
         runs.append((m["loss"].item(), [t.detach().cpu() for t in
                                          PM.tree_leaves(params)], launched))
-    assert runs[0][2] == 0 and runs[1][2] == 2 * 2 * n_attn
+    assert runs[0][2] == (0, 0) and runs[1][2] == (2 * 2 * n_attn, 2 * n_attn)
     assert abs(runs[1][0] - runs[0][0]) < 1e-4
     for a, b in zip(runs[1][1], runs[0][1]):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)

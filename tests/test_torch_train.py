@@ -5,8 +5,9 @@ package, on the CPU, in f32.
   weights and batch: within 1e-5 of the reference (xent and aux too),
   and its backward runs through every mixer (attention, MoE, Mamba,
   mLSTM, sLSTM, the encoder) under the unit checkpoints;
-- ``attention_bwd_ref`` (the backward of the flash kernel's autograd
-  Function) against autograd of ``attention_ref``: causal, windowed,
+- ``attention_bwd_ref`` (the flash kernel's autograd Function's
+  backward on ``meta`` tensors) against autograd of ``attention_ref``
+  on ``_flashcases.BWD_CASES``: causal, windowed,
   GQA, offsets (rows that see no key included) and a query length that
   is not a multiple of the block, within 1e-5;
 - the Mamba and xLSTM mixers under grad: their recurrent state is
@@ -20,6 +21,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 import _modelpair as MP  # noqa: E402
+from _flashcases import BWD_CASES  # noqa: E402
 from repro.configs import ARCHS  # noqa: E402
 from repro.configs.base import ShapeSpec as JShape  # noqa: E402
 from repro.models import model as JM  # noqa: E402
@@ -64,18 +66,6 @@ def test_loss_fn_matches_reference(arch, smoke_mesh):
     grads = [p.grad for p in PM.tree_leaves(params) if p.grad is not None]
     assert all(torch.isfinite(g).all() for g in grads)
     assert sum(g.abs().sum() > 0 for g in grads) > len(grads) // 2
-
-
-# (B, Hq, Hkv, Lq, Lkv, D, causal, window, q_offset, kv_offset)
-BWD_CASES = [
-    (2, 4, 4, 200, 200, 16, True, 0, 0, 0),      # Lq not a block multiple
-    (2, 6, 1, 128, 128, 32, True, 0, 0, 0),      # GQA group 6
-    (1, 4, 2, 130, 200, 32, True, 0, 70, 0),     # queries after a prefix
-    (1, 4, 2, 100, 200, 16, True, 24, 100, 0),   # sliding window
-    (1, 4, 4, 100, 300, 16, False, 0, 0, 0),     # not causal
-    (1, 4, 4, 100, 100, 16, True, 0, 0, 30),     # first 30 rows see nothing
-    (1, 4, 4, 100, 60, 16, False, 16, 0, 0),     # last rows see nothing
-]
 
 
 @pytest.mark.parametrize("case", BWD_CASES, ids=str)
