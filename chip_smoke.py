@@ -173,6 +173,7 @@ import bisect
 import contextlib
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -889,8 +890,16 @@ def flash_times(B, Hq, Hkv, L, D, gen, causal: bool = True) -> dict:
                  f"{'causal' if causal else 'not causal'} bf16"}
 
 
+#: eager calls a shape that ``bwd_profile_child`` profiles
+BWD_PROFILE_CALLS = 4
+#: a flash backward kernel's device event: its name and head dim
+BWD_KERNEL_NAME = re.compile(r"::(bwd_\w+)<(\d+)>")
+
+
 def flash_bwd_times(B, Hq, Hkv, L, D, gen, causal: bool = True) -> dict:
-    """The flash backward kernel at one bf16 shape (CUDA graph replay),
+    """The flash backward at one bf16 shape: the call (CUDA graph replay),
+    the bytes of its dQ scratch (each kernel's device time comes from
+    ``bwd_profile_child``);
     its plain version (``attention_bwd_from_stats_ref``), the plain
     backward it replaces on the training path (``attention_bwd_ref``) and
     SDPA's backward alone (``enable_gqa``; one forward outside the
@@ -919,6 +928,7 @@ def flash_bwd_times(B, Hq, Hkv, L, D, gen, causal: bool = True) -> dict:
     res = {
         "ms": device_ms([lambda: FK.flash_attention_bwd(
             q, k, v, do, stats, causal=causal)] * 2),
+        "dq_scratch_bytes": FK.dq_scratch_bytes(q),
         "plain_ms": warm_ms(lambda: attention_bwd_from_stats_ref(
             q, k, v, do, stats, causal=causal), 1),
         "attention_bwd_ref_ms": warm_ms(lambda: attention_bwd_ref(
@@ -931,6 +941,64 @@ def flash_bwd_times(B, Hq, Hkv, L, D, gen, causal: bool = True) -> dict:
                  f"{'causal' if causal else 'not causal'} bf16"}
     del out, leaves
     return res
+
+
+def bwd_profile_child() -> None:
+    """Each kernel of the flash backward at phases 13's and 15's training
+    shapes, in a process of its own (the card's tracer records kernels in
+    a process's first profiler session only, and 13c's is the parent's):
+    BWD_PROFILE_CALLS eager calls at each shape under ``torch.profiler``,
+    the device events of each backward kernel instance by name (the two
+    shapes differ in head dim, so in instance), their mean device ms a
+    call; prints {shape: {kernel: ms}} as JSON on its last line."""
+    import os
+    import tempfile
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.profile_serve import DEVICE_CATS
+    gen = torch.Generator(device="cuda").manual_seed(CASE_SEED + 2)
+    shapes = {"flash_attention_bwd": train_flash_cases()[0],
+              f"flash_attention_bwd/{MOE_ARCH}-train": moe_flash_cases()[0]}
+    check(len({c[5] for c in shapes.values()}) == len(shapes),
+          f"the backward's timed shapes share a head dim: {shapes}")
+    calls = {}
+    for name, (B, Hq, Hkv, L, _, D, causal, _, _, _) in shapes.items():
+        q, do = (_rand((B, Hq, L, D), torch.bfloat16, gen) for _ in range(2))
+        k, v = (_rand((B, Hkv, L, D), torch.bfloat16, gen) for _ in range(2))
+        _, stats = FK.flash_attention(q, k, v, causal=causal,
+                                      return_stats=True)
+        calls[name] = (D, lambda t=(q, k, v, do, stats), c=causal:
+                       FK.flash_attention_bwd(*t, causal=c))
+        calls[name][1]()                              # warm
+    torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _, fn in calls.values():
+                for _ in range(BWD_PROFILE_CALLS):
+                    fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            dev = [e for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    finally:
+        os.unlink(path)
+    rep = {}
+    for name, (D, _) in calls.items():
+        rep[name] = {}
+        for e in dev:
+            m = BWD_KERNEL_NAME.search(e["name"])
+            if m and int(m.group(2)) == D:
+                rep[name][m.group(1)] = rep[name].get(m.group(1), 0.0) + \
+                    e["dur"] / 1e3 / BWD_PROFILE_CALLS
+        check(set(rep[name]) == set(FK.BWD_KERNELS[torch.bfloat16]),
+              f"{name}: the profile holds {rep[name]}, not each of "
+              f"{FK.BWD_KERNELS[torch.bfloat16]}")
+    print(json.dumps(rep))
 
 
 def paged_times(B, Hq, Hkv, D, page, NP, gen) -> dict:
@@ -989,7 +1057,7 @@ def attention_times() -> dict:
     and phase 16's prefills other than MiniCPM-2B's, beside the bound, the plain version and the library call
     (SDPA for flash; paged attention has no single PyTorch call); the
     flash backward at phases 13's and 15's training shapes
-    (``flash_bwd_times``)."""
+    (``flash_bwd_times``, each kernel's time from ``bwd_profile_child``)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(CASE_SEED + 1)
     B, H, L, D = 8, 36, 1024, 64
@@ -1018,6 +1086,9 @@ def attention_times() -> dict:
                B_t, Hq_t, Hkv_t, L_t, D_t, gen, causal=c_t),
            f"flash_attention_bwd/{MOE_ARCH}-train": flash_bwd_times(
                B_m, Hq_m, Hkv_m, L_m, D_m, gen, causal=c_m)}
+    for name, kernels in child_report(lambda *a: None,
+                                      "bwd_profile_child").items():
+        res[name]["kernels_ms"] = kernels
     for r in res.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / BF16_FLOPS_PER_S * 1e3
@@ -1683,8 +1754,8 @@ def profile_train_step(state, oc, say, mesh=None, cell=None) -> dict:
     under ``torch.profiler``, as ``launch/profile_serve.py`` profiles a
     prefill: host wall time, device busy time and idle share, the top
     kernels, and the device time of the flash forward and of the flash
-    backward's two kernels (``bwd_dq_*``, ``bwd_dkdv_*``), by kernel
-    name.  ``cell`` is the run's (cfg, shape, accum), phase
+    backward's kernels (``BWD_KERNEL_NAME``: ``bwd_delta_bf16`` and
+    ``bwd_keymajor_bf16``), by kernel name, together and each.  ``cell`` is the run's (cfg, shape, accum), phase
     13's by default.  On a mesh also the collectives: the train step's
     ``all_reduce_axes`` and ``gather_full`` calls (ZeRO-1's) and the device
     time launched inside them, the process group's own profiler ranges
@@ -1743,14 +1814,19 @@ def profile_train_step(state, oc, say, mesh=None, cell=None) -> dict:
     rep = _report("  profiled train step", wall, dev, 10)
     rep["flash_forward_ms"] = sum(e["dur"] for e in dev
                                   if "flash_bf16" in e["name"]) / 1e3
-    rep["flash_backward_ms"] = sum(
-        e["dur"] for e in dev if "bwd_dq_bf16" in e["name"]
-        or "bwd_dkdv_bf16" in e["name"]) / 1e3
+    rep["flash_backward_kernels_ms"] = {}
+    for e in dev:
+        m = BWD_KERNEL_NAME.search(e["name"])
+        if m:
+            k = rep["flash_backward_kernels_ms"]
+            k[m.group(1)] = k.get(m.group(1), 0.0) + e["dur"] / 1e3
+    rep["flash_backward_ms"] = sum(rep["flash_backward_kernels_ms"].values())
     check(rep["flash_forward_ms"] > 0 and rep["flash_backward_ms"] > 0,
           f"{cfg.name}: no flash forward or backward kernel in the "
           f"trace: {rep}")
     say(f"  flash forward {rep['flash_forward_ms']:.3f} ms, flash backward "
-        f"{rep['flash_backward_ms']:.3f} ms of {rep['busy_ms']:.3f} ms "
+        f"{rep['flash_backward_ms']:.3f} ms "
+        f"({rep['flash_backward_kernels_ms']}) of {rep['busy_ms']:.3f} ms "
         f"device busy ({rep['flash_backward_ms'] / rep['busy_ms']:.3f}); "
         f"idle share {rep['idle_share']:.3f}")
     if mesh is None:
@@ -2133,9 +2209,10 @@ def mesh_profile_child() -> None:
     print(json.dumps(rep))
 
 
-def mesh_profile(say, child: str = "mesh_profile_child") -> dict:
-    """Run ``child`` (``mesh_profile_child`` or ``moe_profile_child``) in a
-    fresh interpreter; its report."""
+def child_report(say, child: str = "mesh_profile_child") -> dict:
+    """Run ``child`` (``mesh_profile_child``, ``moe_profile_child``,
+    ``mesh_serve_profile_child`` or ``bwd_profile_child``) in a fresh
+    interpreter; its report."""
     res = subprocess.run(
         [sys.executable, "-c", f"import chip_smoke; chip_smoke.{child}()"],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -2316,6 +2393,7 @@ def moe_mesh_training(say) -> dict:
         say(f"    {msg}")
 
     torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats()["num_alloc_retries"]
     FK.flash_attention.launches = FK.flash_attention_bwd.launches = 0
     with first_step_record(mine) as hook:
         state, losses, stats = run_training(
@@ -2325,6 +2403,8 @@ def moe_mesh_training(say) -> dict:
     launches = FK.flash_attention.launches
     bwd = FK.flash_attention_bwd.launches
     peak = torch.cuda.max_memory_allocated() / 1e9
+    reserved = torch.cuda.max_memory_reserved() / 1e9
+    retries = torch.cuda.memory_stats()["num_alloc_retries"] - retries0
     n_attn = attention_layers(cfg)
     want = n_attn * 2 * MOE_ACCUM * MOE_STEPS
     check(launches == want, f"15a: {launches} flash launches, not {n_attn} "
@@ -2346,7 +2426,9 @@ def moe_mesh_training(say) -> dict:
         f"{cfg.n_experts}); loss {losses[0]!r} against {plain['loss']!r} "
         f"without a mesh (relative {loss_rel:.3g}); worst leaf relnorm "
         f"{worst[1]:.3g} ({worst[0]}); losses {losses}; peak {peak:.2f} GB "
-        f"({plain['peak_gb']:.2f} GB without a mesh), {MOE_STATE} moments; "
+        f"({plain['peak_gb']:.2f} GB without a mesh; reserved {reserved:.2f}"
+        f" GB, {retries} allocator retries on the mesh), {MOE_STATE} "
+        f"moments; "
         f"{launches} flash launches ({n_attn} layer x 2 x {MOE_ACCUM} x "
         f"{MOE_STEPS} steps), {bwd} backward")
     check(loss_rel <= MESH_LOSS_REL,
@@ -2358,6 +2440,7 @@ def moe_mesh_training(say) -> dict:
             "accum": MOE_ACCUM, "state_dtype": MOE_STATE, "losses": losses,
             "loss_rel": loss_rel, "worst_leaf": worst[0],
             "worst_leaf_relnorm": worst[1], "steps": steps, "peak_gb": peak,
+            "reserved_gb": reserved, "alloc_retries": retries,
             "flash_launches": launches,
             "flash_launches_a_step": launches // MOE_STEPS,
             "flash_bwd_launches": bwd}
@@ -3516,7 +3599,9 @@ def main() -> int:
             f"{r['sdpa_row_rel_err']:.3g} row-relative)")
         if "attention_bwd_ref_ms" in r:
             extra = (f"; attention_bwd_ref (the training path's backward "
-                     f"before the kernel) {r['attention_bwd_ref_ms']:.5f} ms")
+                     f"before the kernel) {r['attention_bwd_ref_ms']:.5f} ms"
+                     f"; each kernel, profiled {r['kernels_ms']}; dQ scratch "
+                     f"{r['dq_scratch_bytes']} B")
         say(f"  {name} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
             f"{r['plain_ms']:.5f} ms, library {lib_ms} ms, bound "
             f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} B at "
@@ -3655,7 +3740,7 @@ def main() -> int:
     bwd_by_phase["14b"] = mesh_train["flash_bwd_launches"]
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_train["profile"] = mesh_profile(say)
+    mesh_train["profile"] = child_report(say)
     say(f"  {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     say("[14c] int8 gradient compression on the card")
@@ -3681,7 +3766,7 @@ def main() -> int:
     bwd_by_phase["15"] = moe_train["flash_bwd_launches"]
     gc.collect()
     torch.cuda.empty_cache()
-    moe_train["profile"] = mesh_profile(say, "moe_profile_child")
+    moe_train["profile"] = child_report(say, "moe_profile_child")
     say(f"  {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     say(f"[15b] {', '.join(MOE_REDUCED)} reduced, f32, one step on the 1x1 "
@@ -3707,7 +3792,7 @@ def main() -> int:
     flash_by_phase["16"] = {k: r["mesh"]["flash_launches"]
                             for k, r in mesh_serving.items()}
     launches["flash_attention"] += sum(flash_by_phase["16"].values())
-    for k, rep in mesh_profile(say, "mesh_serve_profile_child").items():
+    for k, rep in child_report(say, "mesh_serve_profile_child").items():
         mesh_serving[k]["profile"] = rep
     say(f"  flash_attention launches by phase: {flash_by_phase}, in all "
         f"{launches['flash_attention']}; {time.perf_counter() - t0:.2f} s")
@@ -3802,7 +3887,7 @@ def main() -> int:
             "library_ms": r["library_ms"], **extra})
     r = attn["flash_attention_bwd"]
     keys = ("shape", "ms", "plain_ms", "attention_bwd_ref_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "bound_by", "library_ms", "kernels_ms", "dq_scratch_bytes")
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",

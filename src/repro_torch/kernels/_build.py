@@ -3,8 +3,9 @@
 Each source under ``src/repro_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, at
 first use, under ``build/kernels/`` in the checkout (gitignored).  The
-library's name carries a hash of the source and the flags, so an edit
-to either builds anew and a fresh checkout builds everything it needs.
+library's name carries a hash of the source, the ``csrc/*.cuh`` headers
+it includes and the flags, so an edit to any of them builds anew and a
+fresh checkout builds everything it needs.
 The compiler's register and shared-memory report (``-Xptxas -v``) is
 kept beside each library as ``<library>.log``.
 """
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -38,11 +40,19 @@ def _nvcc() -> str:
     return path
 
 
+def _headers(text: str) -> list[Path]:
+    """The ``csrc/`` headers a source includes (``#include "x.cuh"``)."""
+    return [CSRC / name for name in
+            re.findall(r'^\s*#\s*include\s+"([^"]+\.cuh)"', text, re.M)]
+
+
 def library_path(source: str) -> Path:
-    """Where the library of ``csrc/<source>`` lives for this source and
-    these flags."""
+    """Where the library of ``csrc/<source>`` lives for this source, the
+    ``csrc/*.cuh`` headers it includes and these flags."""
     src = CSRC / source
-    key = hashlib.sha256(src.read_bytes()
+    text = src.read_bytes()
+    parts = [text] + [h.read_bytes() for h in _headers(text.decode())]
+    key = hashlib.sha256(b"".join(parts)
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{key}.so"
 

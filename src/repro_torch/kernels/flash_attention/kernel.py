@@ -22,11 +22,15 @@ _I = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = (("fa_forward", (_P,) * 5 + (_I,) * 11 + (_P,)),
                ("fa_describe", (_I, _I, _P)))
-_BWD_SIGNATURES = (("fa_backward", (_P,) * 9 + (_I,) * 11 + (_P,)),
+_BWD_SIGNATURES = (("fa_backward", (_P,) * 11 + (_I,) * 11 + (_P,)),
                    ("fa_bwd_describe", (_I, _I, _I, _P)))
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-_BQ = 64            # query rows per block, both kernels (the .cu's BQ)
+_BQ = 64            # query rows per block: the forward, the f32 backward
+#: the backward's two kernels by dtype, in launch order
+BWD_KERNELS = {torch.bfloat16: ("bwd_delta_bf16", "bwd_keymajor_bf16"),
+               torch.float32: ("bwd_dq_f32", "bwd_dkdv_f32")}
+_DQ_ROWS = 64       # the key-major kernel's query tile (the .cu's tc::QT)
 _DESCRIBE = ("block_rows", "threads", "smem_bytes", "registers",
              "local_bytes", "blocks_per_sm")
 
@@ -110,8 +114,9 @@ flash_attention.launches = 0
 def check_bwd_inputs(q, k, v, do, stats, window: int) -> None:
     """Raise ValueError for what the backward kernel does not take."""
     check_inputs(q, k, v, window)
-    if -(-k.shape[2] // _BQ) >= 2 ** 16:
-        raise ValueError(f"Lkv={k.shape[2]} exceeds the backward's grid")
+    if -(-k.shape[2] // _BQ) >= 2 ** 16 or q[..., 0].numel() >= 2 ** 31:
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} exceed "
+                         "the backward's grid")
     _check_tensors(q, (("do", do),))
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} does not match q "
@@ -123,6 +128,21 @@ def check_bwd_inputs(q, k, v, do, stats, window: int) -> None:
                          f"{tuple(stats.shape)} on {stats.device}")
 
 
+def _dq_scratch_sizes(q) -> tuple[int, int]:
+    """The bf16 backward's scratch for q's shape, (f32 values, int32
+    counters): dQ's partial sums, a (64 x D) block a (batch x head, query
+    tile) as two halves of the head dim, each summed along a chain of key
+    tiles; the chains' counters, and the item claim's."""
+    B, Hq, Lq, D = q.shape
+    tiles = B * Hq * -(-Lq // _DQ_ROWS)
+    return tiles * _DQ_ROWS * D, 1 + 2 * tiles
+
+
+def dq_scratch_bytes(q) -> int:
+    """The bytes of the bf16 backward's scratch for q's shape."""
+    return 4 * sum(_dq_scratch_sizes(q))
+
+
 def flash_attention_bwd(q, k, v, do, stats, *, causal: bool = True,
                         window: int = 0, q_offset: int = 0,
                         kv_offset: int = 0):
@@ -132,8 +152,10 @@ def flash_attention_bwd(q, k, v, do, stats, *, causal: bool = True,
     stats: the forward's f32 (B, Hq, Lq) statistics (``return_stats``).
     The output is not an input: delta = rowsum(P o dP) is taken from the
     scores (the note in ``csrc/flash_attention_bwd.cu`` says why).  One
-    call launches two kernels on the current stream (dq, then dk and dv);
-    deterministic, no atomics."""
+    call launches two kernels on the current stream (bf16: delta, then the
+    key-major dq, dk and dv, with an f32 scratch of ``dq_scratch_bytes``
+    for dQ's partial sums; f32: dq, then dk and dv).  Deterministic: dQ's
+    partial sums are added in key-tile order, never by atomics."""
     check_bwd_inputs(q, k, v, do, stats, window)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
@@ -141,12 +163,19 @@ def flash_attention_bwd(q, k, v, do, stats, *, causal: bool = True,
     B, Hq, Lq, D = q.shape
     Hkv, Lkv = k.shape[1], k.shape[2]
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    dq_acc = counters = None
+    if q.dtype == torch.bfloat16:
+        values, flags = _dq_scratch_sizes(q)
+        dq_acc = torch.empty(values, dtype=torch.float32, device=q.device)
+        counters = torch.zeros(flags, dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = load_bwd_library().fa_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         stats.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, Hq, Hkv, Lq, Lkv, D, int(q.dtype == torch.bfloat16),
-        int(bool(causal)), int(window), int(q_offset), int(kv_offset), stream)
+        dv.data_ptr(), None if dq_acc is None else dq_acc.data_ptr(),
+        None if counters is None else counters.data_ptr(), B, Hq, Hkv, Lq,
+        Lkv, D, int(q.dtype == torch.bfloat16), int(bool(causal)),
+        int(window), int(q_offset), int(kv_offset), stream)
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -167,10 +196,11 @@ def describe(head_dim: int, dtype) -> dict:
 
 
 def bwd_describe(head_dim: int, dtype) -> dict:
-    """``describe`` for the backward's two kernels: {"dq": {...},
-    "dkdv": {...}} ("block_rows" is the tile's query rows or keys)."""
+    """``describe`` for the backward's two kernels, by name
+    (``BWD_KERNELS[dtype]``; "block_rows" is the tile's query rows or
+    keys)."""
     res = {}
-    for which, name in enumerate(("dq", "dkdv")):
+    for which, name in enumerate(BWD_KERNELS[dtype]):
         out = (ctypes.c_int * len(_DESCRIBE))()
         err = load_bwd_library().fa_bwd_describe(
             int(head_dim), int(dtype == torch.bfloat16), which, out)

@@ -10,7 +10,8 @@ backward ``ops.FlashAttention`` takes on ``meta`` tensors, the dry-run's
 trace), and ``attention_stats_ref`` / ``attention_bwd_from_stats_ref``,
 the forward's softmax statistics and the gradient from them, walking the
 tiles of ``csrc/flash_attention_bwd.cu`` as it does (what the kernel is
-held against on the card).
+held against on the card), with the key-major kernel's walk and dQ order
+(``query_tiles``, ``claim_order``, ``dq_order``).
 """
 from __future__ import annotations
 
@@ -101,8 +102,13 @@ def attention_bwd_ref(q, k, v, do, *, causal: bool = True, window: int = 0,
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
-#: the backward kernels' tiles: query rows, keys
-BQ = BK = 64
+#: the key-major kernel's tiles: query rows a tile, keys a work item (64 a
+#: warpgroup)
+BQ, BK = 64, 128
+#: the delta kernel's tiles: query rows a block, keys a streamed tile
+DELTA_BQ, DELTA_BK = 128, 64
+#: the f32 kernels' tiles (dq's query rows, dk/dv's keys)
+F32_BQ, F32_BK = 64, 64
 
 
 def _key_range(qp_first: int, qp_last: int, Lkv: int, causal: bool,
@@ -122,17 +128,59 @@ def _key_range(qp_first: int, qp_last: int, Lkv: int, causal: bool,
 
 
 def key_tiles(qt: int, Lq: int, Lkv: int, *, causal: bool = True,
-              window: int = 0, q_offset: int = 0,
-              kv_offset: int = 0) -> tuple[int, int]:
-    """The key tiles [t_lo, t_hi) that query tile ``qt`` visits in both
-    backward kernels: its key range by whole tiles of BK keys.  The dk/dv
-    kernel visits query tile ``qt`` from key tile ``kt`` iff
-    ``t_lo <= kt < t_hi``."""
-    q0 = qt * BQ
+              window: int = 0, q_offset: int = 0, kv_offset: int = 0,
+              bq: int = BQ, bk: int = BK) -> tuple[int, int]:
+    """The key tiles [t_lo, t_hi) that query tile ``qt`` (of ``bq`` rows)
+    visits: its key range by whole tiles of ``bk`` keys.  The delta kernel
+    walks them for each block of DELTA_BQ rows (tiles of DELTA_BK keys);
+    the key-major kernel's item of key tile ``kt`` visits query tile
+    ``qt`` iff ``t_lo <= kt < t_hi`` (``query_tiles``)."""
+    q0 = qt * bq
     qp = q_offset + q0
-    lo, hi, _ = _key_range(qp, qp + min(BQ, Lq - q0) - 1, Lkv, causal,
+    lo, hi, _ = _key_range(qp, qp + min(bq, Lq - q0) - 1, Lkv, causal,
                            window, kv_offset)
-    return lo // BK, -(-hi // BK)
+    return lo // bk, -(-hi // bk)
+
+
+def query_tiles(kt: int, Lq: int, Lkv: int, *, causal: bool = True,
+                window: int = 0, q_offset: int = 0,
+                kv_offset: int = 0) -> list[int]:
+    """The query tiles (of BQ rows) that the key-major kernel's item of key
+    tile ``kt`` (of BK keys) visits for each query head of its kv head, in
+    its order, as its ``walk_of`` and ``next_tile`` find them: the range
+    from the first visited tile to the last, every tile of it where none
+    lies between unvisited, else those ``key_tiles`` says visit ``kt``."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_offset=kv_offset)
+
+    def visits(qt):
+        t_lo, t_hi = key_tiles(qt, Lq, Lkv, **kw)
+        return t_lo <= kt < t_hi
+    seen = [qt for qt in range(-(-Lq // BQ)) if visits(qt)]
+    if not seen:
+        return []
+    first, last = seen[0], seen[-1]
+    gaps = len(seen) != last - first + 1
+    return [qt for qt in range(first, last + 1) if not gaps or visits(qt)]
+
+
+def claim_order(B: int, Hkv: int, Lkv: int) -> list[tuple[int, int, int]]:
+    """The key-major kernel's work items (kt, b, g) in the order its
+    persistent blocks claim them from the global counter: key tiles
+    outermost (key tile 0 is the heaviest under a causal mask)."""
+    return [(kt, b, g) for kt in range(-(-Lkv // BK)) for b in range(B)
+            for g in range(Hkv)]
+
+
+def dq_order(qt: int, Lq: int, Lkv: int, **kw) -> list[tuple[int, int]]:
+    """The order in which query tile ``qt``'s dQ parts are summed: one
+    chain a half ``w`` of the head dim (warpgroup ``w`` of each item takes
+    that half over the item's BK keys), each over the key tiles that visit
+    ``qt`` in ascending order: the chain's first part is stored, the next
+    added in the L2, and the last adds the chain's sum and writes its half
+    of dq.  Returns [(kt, w), ...], chain 0 then chain 1."""
+    t_lo, t_hi = key_tiles(qt, Lq, Lkv, **kw)
+    return [(kt, w) for w in (0, 1) for kt in range(t_lo, t_hi)]
 
 
 def attention_stats_ref(q, k, *, causal: bool = True, window: int = 0,
@@ -154,9 +202,11 @@ def attention_bwd_from_stats_ref(q, k, v, do, stats, *,
     ``stats`` (``attention_stats_ref``), as ``csrc/flash_attention_bwd.cu``
     computes it, in f32: (dq, dk, dv) in the inputs' dtypes.
 
-    It walks the kernels' tiles with their skip rule: each tile of BQ
-    query rows against the key tiles ``key_tiles`` gives it, taken as one
-    slab of keys (the 64 x 64 tiles of one query tile side by side).  P is
+    It walks the key-major kernel's tiles with their skip rule: each tile
+    of BQ query rows against the key tiles ``key_tiles`` gives it, taken
+    as one slab of keys (the BQ x BK tiles of one query tile side by
+    side; the kernel sums dQ's parts in ``dq_order``, the slab at once,
+    which differs only by f32 rounding).  P is
     rebuilt as exp(S - stats) on the keys a row sees; a row whose stats
     are NEG_INF (it sees no key) has P = 1/Lkv on every key; dS = P (dP -
     delta) with delta = rowsum(P o dP) over the row's keys, and 0 in a row

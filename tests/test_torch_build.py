@@ -25,6 +25,23 @@ def test_library_path_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
     assert _build.library_path("k.cu") != first
 
 
+def test_library_path_is_keyed_by_the_headers_a_source_includes(tmp_path,
+                                                                monkeypatch):
+    """An edit to a ``csrc/*.cuh`` header that a source includes builds
+    that source anew; a header it does not include leaves it alone."""
+    assert _build._headers((_build.CSRC / FK.BWD_SOURCE).read_text()) == [
+        _build.CSRC / "hopper.cuh"]
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text("// one\n")
+    (tmp_path / "b.cuh").write_text("// one\n")
+    first = _build.library_path("k.cu")
+    (tmp_path / "b.cuh").write_text("// two\n")
+    assert _build.library_path("k.cu") == first
+    (tmp_path / "a.cuh").write_text("// two\n")
+    assert _build.library_path("k.cu") != first
+
+
 def test_build_without_nvcc_raises_and_leaves_nothing(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)

@@ -8,7 +8,10 @@ walking the kernels' tiles with their skip rule) are held to
 ``attention_ref`` and to ``jax.vjp`` of the reference's
 ``blockwise_attention`` on the same numpy inputs, within 1e-5, on
 ``_flashcases.BWD_CASES`` (causal, windowed, GQA, offsets, rows that see
-no key) and at the training head dims.  The card holds the kernel to
+no key) and at the training head dims.  The kernels' tile model is held
+to the pairs the masks need: both kernels' walks, the key-major walk
+against the query-major rule, and dQ's fixed order against the claim
+order of the persistent grid.  The card holds the kernels to
 ``attention_bwd_from_stats_ref`` (``tests/test_torch_on_card.py``).
 """
 import numpy as np
@@ -162,26 +165,34 @@ TILE_CASES = [
 ]
 
 
+#: each kernel's (query rows, keys) a tile: the key-major kernel's, the
+#: delta kernel's, the f32 kernels'
+TILES = [(ref.BQ, ref.BK), (ref.DELTA_BQ, ref.DELTA_BK),
+         (ref.F32_BQ, ref.F32_BK)]
+
+
+@pytest.mark.parametrize("tiles", TILES, ids=str)
 @pytest.mark.parametrize("case", TILE_CASES, ids=str)
-def test_tile_walk_covers_every_pair_it_needs(case):
+def test_tile_walk_covers_every_pair_it_needs(case, tiles):
     """The kernels' (query tile, key tile) pairs hold every pair some row
     sees and, for a row that sees nothing, every key (its uniform
     average); key tiles stay inside Lkv; and a query tile visits no key
     tile before its first needed one or after its last."""
     Lq, Lkv, causal, window, qo, ko = case
+    bq, bk = tiles
     kw = dict(causal=causal, window=window, q_offset=qo, kv_offset=ko)
     seen = _seen((1, 1, 1, Lq, Lkv, 16, causal, window, qo, ko))
-    nqt, nkt = -(-Lq // ref.BQ), -(-Lkv // ref.BK)
+    nqt, nkt = -(-Lq // bq), -(-Lkv // bk)
     need = np.zeros((nqt, nkt), bool)
     for qt in range(nqt):
-        rows = seen[qt * ref.BQ:(qt + 1) * ref.BQ]
+        rows = seen[qt * bq:(qt + 1) * bq]
         blind = ~rows.any(-1)
         for kt in range(nkt):
-            cols = rows[:, kt * ref.BK:(kt + 1) * ref.BK]
+            cols = rows[:, kt * bk:(kt + 1) * bk]
             need[qt, kt] = cols.any() or blind.any()
     visit = np.zeros_like(need)
     for qt in range(nqt):
-        t_lo, t_hi = ref.key_tiles(qt, Lq, Lkv, **kw)
+        t_lo, t_hi = ref.key_tiles(qt, Lq, Lkv, bq=bq, bk=bk, **kw)
         assert 0 <= t_lo < t_hi <= nkt
         visit[qt, t_lo:t_hi] = True
     assert not (need & ~visit).any()
@@ -191,6 +202,87 @@ def test_tile_walk_covers_every_pair_it_needs(case):
         cols = np.flatnonzero(need[qt])
         assert (np.flatnonzero(visit[qt]) == np.arange(cols[0], cols[-1] + 1)
                 ).all()
+
+
+@pytest.mark.parametrize("case", TILE_CASES, ids=str)
+def test_the_two_walks_visit_one_set_of_pairs(case):
+    """The key-major kernel's walk (each key tile's query tiles, as its
+    ``walk_of``/``next_tile`` find them) visits exactly the (query tile,
+    key tile) pairs that the query-major rule (``key_tiles``) gives, each
+    once, query tiles ascending; the items of key tiles no row sees visit
+    nothing (they write zero dK and dV)."""
+    Lq, Lkv, causal, window, qo, ko = case
+    kw = dict(causal=causal, window=window, q_offset=qo, kv_offset=ko)
+    nqt, nkt = -(-Lq // ref.BQ), -(-Lkv // ref.BK)
+    by_query = {(qt, kt) for qt in range(nqt)
+                for kt in range(*ref.key_tiles(qt, Lq, Lkv, **kw))}
+    walks = {kt: ref.query_tiles(kt, Lq, Lkv, **kw) for kt in range(nkt)}
+    for tiles in walks.values():
+        assert tiles == sorted(set(tiles))
+    assert {(qt, kt) for kt, tiles in walks.items() for qt in tiles} \
+        == by_query
+
+
+@pytest.mark.parametrize("heads", [(1, 1), (2, 3)], ids=str)
+@pytest.mark.parametrize("case", TILE_CASES, ids=str)
+def test_claim_order_puts_every_dq_predecessor_first(case, heads):
+    """dQ's fixed order cannot deadlock the persistent grid: in the order
+    the blocks claim items, the item that must add a query tile's part
+    before an item (key tile kt - 1 of the same kv head, ``dq_order``) is
+    claimed earlier and visits that tile too, and each chain starts at the
+    first key tile that visits the tile.  Then a block that waits holds
+    only items later than the ones it waits for, which run on blocks that
+    have claimed them: a few blocks claiming in this order, each item's
+    steps waiting for their predecessors, run to the end."""
+    Lq, Lkv, causal, window, qo, ko = case
+    B, Hkv = heads
+    kw = dict(causal=causal, window=window, q_offset=qo, kv_offset=ko)
+    items = ref.claim_order(B, Hkv, Lkv)
+    assert len(items) == len(set(items)) == B * Hkv * -(-Lkv // ref.BK)
+    place = {item: i for i, item in enumerate(items)}
+    for kt, b, g in items:
+        for qt in ref.query_tiles(kt, Lq, Lkv, **kw):
+            order = ref.dq_order(qt, Lq, Lkv, **kw)
+            chain = [t for t, w in order if w == 0]
+            assert chain == [t for t, w in order if w == 1] == list(
+                range(*ref.key_tiles(qt, Lq, Lkv, **kw)))
+            if kt == chain[0]:
+                continue
+            assert place[(kt - 1, b, g)] < place[(kt, b, g)]
+            assert qt in ref.query_tiles(kt - 1, Lq, Lkv, **kw)
+    # a few blocks, each taking the next item when its last is done; a
+    # step (item, query tile) waits until the item before it in the
+    # chain has done that tile
+    for blocks in (1, 2, 5):
+        queue = list(items)
+        done = set()
+        running = [None] * blocks
+        for _ in range(10 ** 5):
+            for i in range(blocks):
+                if running[i] is None and queue:
+                    item = queue.pop(0)
+                    running[i] = (item, ref.query_tiles(item[0], Lq, Lkv,
+                                                        **kw))
+            if all(r is None for r in running):
+                break
+            moved = False
+            for i, r in enumerate(running):
+                if r is None:
+                    continue
+                (kt, b, g), tiles = r
+                if tiles:
+                    qt = tiles[0]
+                    first = ref.key_tiles(qt, Lq, Lkv, **kw)[0]
+                    if kt > first and (kt - 1, b, g, qt) not in done:
+                        continue
+                    done.add((kt, b, g, qt))
+                    tiles.pop(0)
+                    moved = True
+                if not tiles:
+                    running[i] = None
+                    moved = True
+            assert moved, f"no block can move with {blocks} blocks"
+        assert not queue and all(r is None for r in running)
 
 
 def test_a_narrower_tile_walk_is_caught(monkeypatch):

@@ -574,6 +574,26 @@ def test_flash_backward_is_deterministic(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
+def test_flash_backward_with_many_items_is_deterministic(cuda_device):
+    """Many more key-major items than resident blocks (4 x 2048, 36 heads
+    of 64, causal: 2304 items on 132 blocks), so that items wait for their
+    dQ predecessors on other blocks: two calls bit-equal, and each row of
+    dq, dk and dv within the bf16 limit of the plain version."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_from_stats_ref)
+    (q, k, v, do), kw = _bwd_inputs((4, 36, 36, 2048, 2048, True, 0, 0, 0),
+                                    64, torch.bfloat16, cuda_device)
+    _, stats = FK.flash_attention(q, k, v, return_stats=True, **kw)
+    a = FK.flash_attention_bwd(q, k, v, do, stats, **kw)
+    b = FK.flash_attention_bwd(q, k, v, do, stats, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    want = attention_bwd_from_stats_ref(q, k, v, do, stats, **kw)
+    for g, w in zip(a, want):
+        _assert_rows_close(g, w, torch.bfloat16)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_flash_forward_stats_leave_output_bit_equal(cuda_device, D, dtype):
