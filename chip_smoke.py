@@ -2707,8 +2707,9 @@ def mesh_serve_profile_child() -> None:
     tracer records kernels in a process's first profiler session only):
     each MESH_SERVE model on the 1x1 NCCL smoke mesh, a short warm-up
     generate, then a generate of its prompt and PROFILE_NEW tokens under
-    the profiler (its prefill and each decode step in a ``phase:*``
-    range): device busy time and idle share, the process group's ranges
+    the profiler (its prefill and each decode step in the engine's own
+    ``ft:engine.prefill`` and ``ft:engine.decode`` ranges): device busy
+    time and idle share, the process group's ranges
     (``nccl:*``) and the device time launched inside them in the prefill
     and a decode step, NCCL's device events; prints the reports as JSON
     on its last line."""
@@ -2733,8 +2734,6 @@ def mesh_serve_profile_child() -> None:
         cfg, toks = _mesh_serve_inputs(arch, n_layers, B, L)
         eng = Engine(cfg, ShapeSpec("serve", L + new, B, "decode"),
                      M.init_params(cfg, CASE_SEED), mesh=mesh)
-        for name in ("prefill", "decode"):
-            _traced(eng, name, f"phase:{name}")
         with torch.no_grad():
             eng.generate({"tokens": toks[:, :WARM_PROMPT]}, max_new_tokens=2)
             torch.cuda.synchronize()
@@ -2762,7 +2761,7 @@ def mesh_serve_profile_child() -> None:
         nccl = [e["name"] for e in trace if e["name"].startswith("nccl:")]
         spans = {ph: [(e["ts"], e["ts"] + e["dur"]) for e in trace
                       if e.get("cat") == "user_annotation"
-                      and e["name"] == f"phase:{ph}"]
+                      and e["name"] == f"ft:engine.{ph}"]
                  for ph in ("prefill", "decode")}
         host = [e for e in trace if e.get("cat") not in DEVICE_CATS]
         in_phase = {ph: _correlated_ms([e for e in host if any(

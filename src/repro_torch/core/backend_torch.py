@@ -64,6 +64,7 @@ from repro_torch.kernels.chunked_copy.pipeline import (
     record,
     wait,
 )
+from repro_torch.spans import span
 
 MB = 2 ** 20
 #: synth_payload's parallel draw: threads, and the 64-bit words a thread
@@ -475,10 +476,11 @@ class TorchBackend:
                 on_progress(mb)
             rep.hop_trace.append(tag)
 
-        if plan.staging == "store_forward" and len(plan.hops) > 1:
-            self._store_forward(plan, obj, rep, landed)
-        else:
-            self._cut_through(plan, obj, rep, landed)
+        with span("ft:backend.execute"):
+            if plan.staging == "store_forward" and len(plan.hops) > 1:
+                self._store_forward(plan, obj, rep, landed)
+            else:
+                self._cut_through(plan, obj, rep, landed)
         rep.wall_ms = (time.perf_counter() - t0) * 1e3
         self.reports.append(rep)
         return rep
@@ -548,7 +550,8 @@ class TorchBackend:
                         if dwin_key is not None and dwin_key in wins:
                             dwin = self.ring_for(dwin_key).window(
                                 wins[dwin_key], nb)
-                            dwin.copy_(cur)
+                            with span("ft:backend.stage"):
+                                dwin.copy_(cur)
                             cur = dwin
                         else:       # pure h2h plan: host store rows
                             _host_put(dst_st.slabs, dst_rows[s:e],
@@ -561,8 +564,9 @@ class TorchBackend:
                             if h.src in wins:
                                 cur = self.ring_for(h.src).window(
                                     wins[h.src], nb)
-                                cur.copy_(_host_get(src_st.slabs,
-                                                    obj.rows[s:e]))
+                                with span("ft:backend.stage"):
+                                    cur.copy_(_host_get(src_st.slabs,
+                                                        obj.rows[s:e]))
                             else:
                                 cur = _host_get(src_st.slabs, obj.rows[s:e])
                         # waits for the upload: the window is reusable

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.chunked_copy.ops import gather, scatter
+from repro_torch.spans import span
 
 #: chunks per trigger batch — mirrors core.linksim.BATCH_CHUNKS (kept
 #: literal here so the kernels package stays importable standalone)
@@ -46,7 +47,8 @@ def record(t: torch.Tensor):
 def wait(ev) -> None:
     """Block the host until an event from :func:`record` has passed."""
     if ev is not None:
-        ev.synchronize()
+        with span("ft:copy.wait"):
+            ev.synchronize()
 
 
 def copy_slabs_sequential(src_pool, src_idx, dst_pool, dst_idx, *,

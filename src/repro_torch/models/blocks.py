@@ -49,6 +49,7 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.param import PSpec
+from repro_torch.spans import span
 
 
 @dataclass
@@ -465,8 +466,9 @@ def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos, enc_out):
         positions = torch.arange(Lq, device=x.device)
         q, k = _rope(cfg, meta, q, k, positions)
         kr, vr = _for_heads(split, k, v) if serving else (k, v)
-        out = attn_mod.blockwise_attention(
-            q, kr, vr, causal=meta["causal"], window=meta["window"])
+        with span("ft:attn.core"):
+            out = attn_mod.blockwise_attention(
+                q, kr, vr, causal=meta["causal"], window=meta["window"])
         if mode == "prefill":
             if meta["window"]:
                 # circular-slot arrangement: token p lives at slot p % W, so
@@ -480,8 +482,9 @@ def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos, enc_out):
                          "v": _to_cache(cfg, ctx, vc, kv_heads)}
     elif serving:  # decode over the sequence-sharded cache
         q, k = _rope(cfg, meta, q, k, torch.full((1,), pos, device=x.device))
-        out = _sharded_decode(ctx, split, q, k, v, cache, pos,
-                              kind="window" if meta["window"] else "full")
+        with span("ft:attn.core"):
+            out = _sharded_decode(ctx, split, q, k, v, cache, pos,
+                                  kind="window" if meta["window"] else "full")
         new_cache = cache
     else:  # decode: the cache is written in place (attention.kv_update)
         positions = torch.full((1,), pos, device=x.device)
@@ -492,11 +495,13 @@ def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos, enc_out):
             ck = attn_mod.kv_update(cache["k"], k, slot)
             cv = attn_mod.kv_update(cache["v"], v, slot)
             # circular window: once pos >= W every slot is live
-            out = attn_mod.decode_attention(q, ck, cv, min(pos, W - 1))
+            with span("ft:attn.core"):
+                out = attn_mod.decode_attention(q, ck, cv, min(pos, W - 1))
         else:
             ck = attn_mod.kv_update(cache["k"], k, pos)
             cv = attn_mod.kv_update(cache["v"], v, pos)
-            out = attn_mod.decode_attention(q, ck, cv, pos)
+            with span("ft:attn.core"):
+                out = attn_mod.decode_attention(q, ck, cv, pos)
         new_cache = dict(cache, k=ck, v=cv)
 
     # the heads' partial sums of the row-parallel output projection
@@ -511,13 +516,15 @@ def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos, enc_out):
         q = torch.einsum("bld,dhk->bhlk", copy_to(h, ctx.mesh, xsplit.axes),
                          xp["cwq"])
         if mode == "decode" and serving:
-            out = _sharded_decode(ctx, xsplit, q, None, None, cache, None,
-                                  kind="cross")
+            with span("ft:attn.core"):
+                out = _sharded_decode(ctx, xsplit, q, None, None, cache,
+                                      None, kind="cross")
         elif mode == "decode":
             # every encoder position is visible
             S_enc = cache["ck"].shape[2]
-            out = attn_mod.decode_attention(q, cache["ck"], cache["cv"],
-                                            S_enc - 1)
+            with span("ft:attn.core"):
+                out = attn_mod.decode_attention(q, cache["ck"], cache["cv"],
+                                                S_enc - 1)
         else:
             enc = copy_to(enc_out, ctx.mesh, xsplit.axes)
             ck = torch.einsum("bld,dhk->bhlk", enc, xp["cwk"])
@@ -526,9 +533,10 @@ def _attn_apply(cfg, ctx, meta, p, x, *, mode, cache, pos, enc_out):
                 heads = xsplit.axes if xsplit.kv is None else ()
                 new_cache = dict(new_cache, ck=_to_cache(cfg, ctx, ck, heads),
                                  cv=_to_cache(cfg, ctx, cv, heads))
-            out = attn_mod.blockwise_attention(
-                q, *(_for_heads(xsplit, ck, cv) if serving else (ck, cv)),
-                causal=False)
+            with span("ft:attn.core"):
+                out = attn_mod.blockwise_attention(
+                    q, *(_for_heads(xsplit, ck, cv) if serving else (ck, cv)),
+                    causal=False)
         y = torch.einsum("bhlk,hkd->bld", out, xp["cwo"])
         x = x + reduce_from(y, ctx.mesh, xsplit.axes)
     return x, new_cache

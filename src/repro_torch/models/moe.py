@@ -54,6 +54,7 @@ from repro_torch.distributed.mesh import (
     all_reduce_axes, axis_index, copy_to, entry_axes, gather_from,
     local_chunk, mesh_axis_size, reduce_from, spec_axes, spec_for)
 from repro_torch.models.param import PSpec
+from repro_torch.spans import span
 
 
 def _wnames(cfg: ArchConfig):
@@ -89,80 +90,82 @@ def moe_block(x, p, cfg: ArchConfig, mesh=None, *, rules=None,
               batch_axes: tuple[str, ...] = ()):
     """x: (B, S, D), the rank's rows, split over ``batch_axes`` -> (out
     (B, S, D) in x's dtype, aux f32 scalar)."""
-    E, k = cfg.n_experts, cfg.top_k
-    specs = moe_specs(cfg)
+    with span("ft:moe"):
+        E, k = cfg.n_experts, cfg.top_k
+        specs = moe_specs(cfg)
 
-    def spec(name):
-        ps = specs[name]
-        if mesh is None:
-            return (None,) * len(ps.shape)
-        return spec_for(ps.shape, ps.logical, rules, mesh)
-    e_axes, d_axes, f_axes = map(entry_axes, spec(_wnames(cfg)[0]))
-    red = tuple(dict.fromkeys(e_axes + f_axes))
-    rows = tuple(a for a in batch_axes if a in red)
-    x = gather_from(x, mesh, rows, 0)
-    B, S, D = x.shape
-    e_loc = E // (mesh_axis_size(mesh, e_axes) if e_axes else 1)
+        def spec(name):
+            ps = specs[name]
+            if mesh is None:
+                return (None,) * len(ps.shape)
+            return spec_for(ps.shape, ps.logical, rules, mesh)
+        e_axes, d_axes, f_axes = map(entry_axes, spec(_wnames(cfg)[0]))
+        red = tuple(dict.fromkeys(e_axes + f_axes))
+        rows = tuple(a for a in batch_axes if a in red)
+        x = gather_from(x, mesh, rows, 0)
+        B, S, D = x.shape
+        e_loc = E // (mesh_axis_size(mesh, e_axes) if e_axes else 1)
 
-    # the body's inputs: the tokens, with their gradient summed over the
-    # reduced axes; the router whole (P(None, None)), likewise; the
-    # experts whole over d_model
-    router = p["router"]
-    for dim, part in enumerate(spec("router")):
-        router = gather_from(router, mesh, entry_axes(part), dim)
-    router = copy_to(router, mesh, tuple(
-        a for a in red if a not in spec_axes(spec("router"))))
-    wp = {n: gather_from(p[n], mesh, d_axes, 2 if n == "wo" else 1)
-          for n in _wnames(cfg)}
-    T = B * S
-    flat = copy_to(x, mesh, red).reshape(T, D)
+        # the body's inputs: the tokens, with their gradient summed over the
+        # reduced axes; the router whole (P(None, None)), likewise; the
+        # experts whole over d_model
+        router = p["router"]
+        for dim, part in enumerate(spec("router")):
+            router = gather_from(router, mesh, entry_axes(part), dim)
+        router = copy_to(router, mesh, tuple(
+            a for a in red if a not in spec_axes(spec("router"))))
+        wp = {n: gather_from(p[n], mesh, d_axes, 2 if n == "wo" else 1)
+              for n in _wnames(cfg)}
+        T = B * S
+        flat = copy_to(x, mesh, red).reshape(T, D)
 
-    probs = torch.softmax(flat.float() @ router.float(), dim=-1)
-    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)            # (T, k)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+        probs = torch.softmax(flat.float() @ router.float(), dim=-1)
+        gate_vals, gate_idx = torch.topk(probs, k, dim=-1)        # (T, k)
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # switch-style load-balance loss, averaged over the data shards
-    me = probs.mean(dim=0)
-    ce = torch.zeros((E,), dtype=torch.float32, device=x.device)
-    ce.index_add_(0, gate_idx.reshape(-1),
-                  torch.full((T * k,), 1.0 / (T * k), device=x.device))
-    aux = E * torch.sum(me * ce)
-    if mesh is not None:
-        aux = _shard_mean(aux, mesh, data_axes if batch_sharded else (),
-                          mesh_axis_size(mesh, red))
+        # switch-style load-balance loss, averaged over the data shards
+        me = probs.mean(dim=0)
+        ce = torch.zeros((E,), dtype=torch.float32, device=x.device)
+        ce.index_add_(0, gate_idx.reshape(-1),
+                      torch.full((T * k,), 1.0 / (T * k), device=x.device))
+        aux = E * torch.sum(me * ce)
+        if mesh is not None:
+            aux = _shard_mean(aux, mesh, data_axes if batch_sharded else (),
+                              mesh_axis_size(mesh, red))
 
-    # rank of each assignment within its expert (one-hot cumsum)
-    eid = gate_idx.reshape(-1)                                    # (T*k,)
-    onehot = F.one_hot(eid, E).to(torch.int32)
-    rank = torch.gather(torch.cumsum(onehot, dim=0), 1,
-                        eid[:, None])[:, 0] - 1
+        # rank of each assignment within its expert (one-hot cumsum)
+        eid = gate_idx.reshape(-1)                                # (T*k,)
+        with span("ft:moe.rank"):
+            onehot = F.one_hot(eid, E).to(torch.int32)
+            rank = torch.gather(torch.cumsum(onehot, dim=0), 1,
+                                eid[:, None])[:, 0] - 1
 
-    cap = int(cfg.capacity_factor * T * k / E) + 1
-    keep = rank < cap
-    le = eid
-    if e_axes:
-        keep = keep & (eid // e_loc == axis_index(mesh, e_axes))
-        le = eid % e_loc
-    slot = rank.clamp(0, cap - 1)
+        cap = int(cfg.capacity_factor * T * k / E) + 1
+        keep = rank < cap
+        le = eid
+        if e_axes:
+            keep = keep & (eid // e_loc == axis_index(mesh, e_axes))
+            le = eid % e_loc
+        slot = rank.clamp(0, cap - 1)
 
-    tok = torch.arange(T, device=x.device).repeat_interleave(k)
-    src = torch.where(keep[:, None], flat[tok], 0)
-    buf = torch.zeros((e_loc, cap, D), dtype=x.dtype, device=x.device)
-    buf.index_put_((le, slot), src, accumulate=True)
+        tok = torch.arange(T, device=x.device).repeat_interleave(k)
+        src = torch.where(keep[:, None], flat[tok], 0)
+        buf = torch.zeros((e_loc, cap, D), dtype=x.dtype, device=x.device)
+        buf.index_put_((le, slot), src, accumulate=True)
 
-    out_buf = _expert_ffn(buf, wp, cfg.mlp_type)               # (E_loc,C,D)
+        out_buf = _expert_ffn(buf, wp, cfg.mlp_type)           # (E_loc,C,D)
 
-    gathered = torch.where(keep[:, None], out_buf[le, slot], 0)
-    weighted = gathered * gate_vals.reshape(-1)[:, None].to(gathered.dtype)
-    # each token's k contributions added in the order of the reference's
-    # scatter-add, with no atomics (the card's index_add_ adds in an order
-    # that varies from run to run)
-    weighted = weighted.view(T, k, D)
-    out = weighted[:, 0]
-    for j in range(1, k):
-        out = out + weighted[:, j]
-    out = reduce_from(out, mesh, red).reshape(B, S, D).to(x.dtype)
-    return local_chunk(out, mesh, rows, 0), aux
+        gathered = torch.where(keep[:, None], out_buf[le, slot], 0)
+        weighted = gathered * gate_vals.reshape(-1)[:, None].to(gathered.dtype)
+        # each token's k contributions added in the order of the reference's
+        # scatter-add, with no atomics (the card's index_add_ adds in an order
+        # that varies from run to run)
+        weighted = weighted.view(T, k, D)
+        out = weighted[:, 0]
+        for j in range(1, k):
+            out = out + weighted[:, j]
+        out = reduce_from(out, mesh, red).reshape(B, S, D).to(x.dtype)
+        return local_chunk(out, mesh, rows, 0), aux
 
 
 def _shard_mean(aux, mesh, axes: tuple[str, ...], n_red: int):

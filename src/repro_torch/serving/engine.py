@@ -21,6 +21,7 @@ from repro_torch.distributed.resharding import tube_reshard
 from repro_torch.models import model as M
 from repro_torch.models.blocks import (
     KV_LOGICAL, block_pattern, kind_meta, layout_for)
+from repro_torch.spans import span
 
 _ATTN_MIXERS = {"attn", "attn_global", "attn_local", "dec_attn"}
 
@@ -140,13 +141,16 @@ class Engine:
         ``batch`` holds ``tokens`` and, where the architecture takes
         them, ``frames`` or ``vision_embeds``; each goes to the engine's
         device."""
-        return M.prefill(self.cfg, self.ctx, self.params, self._rows(batch))
+        with span("ft:engine.prefill"):
+            return M.prefill(self.cfg, self.ctx, self.params,
+                             self._rows(batch))
 
     def decode(self, caches, tok, pos: int, ctx=None):
         """One decode step; the caches are updated in place.  On a mesh,
         ``ctx`` is ``model.decode_ctx``'s."""
-        return M.decode_step(self.cfg, ctx or self.ctx, self.params, caches,
-                             tok, pos)
+        with span("ft:engine.decode"):
+            return M.decode_step(self.cfg, ctx or self.ctx, self.params,
+                                 caches, tok, pos)
 
     def generate(self, batch, max_new_tokens: int, cache_len: int | None = None):
         """Greedy generation.  Returns (tokens (B, max_new), final_caches)."""

@@ -824,3 +824,38 @@ def test_quantize_on_card_bit_equal_to_cpu(cuda_device, shape):
     assert torch.equal(s.cpu().view(torch.int32), sh.view(torch.int32))
     assert torch.equal(dequantize(q, s, n, shape).cpu().view(torch.int32),
                        dequantize(qh, sh, nh, shape).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_traced_reload_waits_inside_the_walk(cuda_device, tmp_path):
+    """A host-to-card reload (MATRIX's ``reload``, cut through) under a
+    profiler of the host alone (the card's tracer records kernels in a
+    process's first profile only): the walk is one
+    ``ft:backend.execute`` range, and its blocking waits on the upload
+    and the landed boundary are ``ft:copy.wait`` ranges inside it, at
+    least one a trigger batch."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+    topo_fn, kind, src, dst, kw = MATRIX["reload"]
+    topo = topo_fn()
+    eng = TransferEngine(LinkSim(topo), PathFinder(topo),
+                         CircularPinnedBuffer(), topo, staging=CUT_THROUGH,
+                         **kw)
+    be = TorchBackend(device="cuda")
+    plan = eng.compile(kind, "t", src, dst, SIZE_MB, data_id="traced")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rep = be.execute(plan)
+    np.testing.assert_array_equal(be.read_object("traced", dst),
+                                  synth_payload("traced", nbytes_of(SIZE_MB)))
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        ft = [(e["name"], e["ts"], e["ts"] + e["dur"])
+              for e in json.load(f)["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+              and e["name"].startswith("ft:")]
+    walks = [r for r in ft if r[0] == "ft:backend.execute"]
+    waits = [r for r in ft if r[0] == "ft:copy.wait"]
+    assert len(walks) == 1 and len(waits) >= rep.n_batches == 3
+    (_, w0, w1), = walks
+    assert all(w0 <= a and b <= w1 for _, a, b in waits)
