@@ -37,10 +37,13 @@ device-side steps are ordered among themselves.  The host waits (a CUDA
 event) wherever it touches bytes a copy is still moving: after every
 device-to-host copy before the host reads the window, and at every
 trigger-batch boundary, before the next batch rewrites a ring window
-that an upload reads.  Progress events carry REAL landed bytes: one
-event per trigger batch whose bytes are resident at the plan
-destination.  Execution is synchronous wall-clock work at submit time
-and never touches the LinkSim event stream.
+that an upload reads.  An upload that reads a page-locked host store in
+place needs no more: ``host_to_pool`` waits for it before it returns,
+and nothing writes a store's rows while a walk reads them, so the rows
+hold still for the length of the copy.  Progress events carry REAL
+landed bytes: one event per trigger batch whose bytes are resident at
+the plan destination.  Execution is synchronous wall-clock work at
+submit time and never touches the LinkSim event stream.
 """
 from __future__ import annotations
 
@@ -285,7 +288,13 @@ class HostRing:
     (``min(transfer, batch_mb)``) for its lifetime and lands every batch
     in that same window — bounded occupancy is the point.  Pinning the
     ring once is the paper's §6.1 pre-pinned circular buffer, against a
-    ``cudaHostAlloc`` per transfer."""
+    ``cudaHostAlloc`` per transfer.
+
+    The window is reserved for every staged hop, but a batch is copied
+    into it only when its source is not page-locked already: an upload
+    from a page-locked host store whose batch rows are one run reads the
+    store in place (its rows hold still until ``host_to_pool`` returns),
+    so such a window stays unwritten."""
 
     def __init__(self, host: str, size_mb: float = 40.0,
                  chunk_mb: float = BLOCK_MB, *, pin: bool = False):
@@ -352,6 +361,9 @@ class ExecReport:
     events: list = field(default_factory=list)
     #: per-batch per-hop steps, in execution order
     hop_trace: list = field(default_factory=list)
+    #: trigger batches whose upload read the page-locked source store in
+    #: place, with no copy into a ring window
+    direct_batches: int = 0
 
 
 class TorchBackend:
@@ -503,7 +515,17 @@ class TorchBackend:
                      landed):
         """Batch-granular handoff: each trigger batch walks the whole
         hop chain before the next enters; intermediate hosts hold only
-        one ring window."""
+        one ring window.
+
+        A plan that starts on a host uploads each batch straight from
+        the source store when the store is page-locked and the batch's
+        rows are one run (``ExecReport.direct_batches``): the DMA reads
+        the rows in place, and they hold still, since ``host_to_pool``
+        waits for the upload before it returns and nothing writes a
+        store's rows while a walk reads them.  Any other batch is staged
+        through the ring window (``ft:backend.stage``).  The window is
+        reserved either way, so the report's staging, hops and events do
+        not depend on which batches were staged."""
         src_st = self.store_for(plan.src)
         dst_st = self.store_for(plan.dst)
         dst_rows = self._dst_rows(plan, obj)
@@ -558,10 +580,17 @@ class TorchBackend:
                                       _host_get(src_st.slabs,
                                                 obj.rows[s:e]))
                     elif h.kind == "h2g":
-                        if cur is None:        # plan starts on a host:
-                            # stage the batch through the src host's
-                            # warm ring window, like pinned staging
-                            if h.src in wins:
+                        if cur is None:        # plan starts on a host
+                            run = _run(obj.rows[s:e]) if src_st.pin \
+                                else None
+                            if run is not None:
+                                # page-locked rows in one run: the DMA
+                                # reads the store in place
+                                cur = src_st.slabs[run]
+                                rep.direct_batches += 1
+                            elif h.src in wins:
+                                # stage the batch through the src host's
+                                # warm ring window, like pinned staging
                                 cur = self.ring_for(h.src).window(
                                     wins[h.src], nb)
                                 with span("ft:backend.stage"):

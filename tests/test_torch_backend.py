@@ -247,3 +247,76 @@ def test_load_reference_state_refuses_fragmented_pool():
     jb.put_object("e", "gpu0", size_mb=8.0)
     with pytest.raises(ValueError, match="cannot reproduce"):
         load_reference_state(cpu_backend(), _snapshot(jb))
+
+
+# ---------------------------------- uploads from a page-locked host store -
+
+DIRECT_MB = 23.0        # 12 chunks, ragged 1 MB tail, 3 trigger batches
+
+
+def _host_backend(monkeypatch, host: str, pinned: bool, size_mb: float):
+    """A CPU backend whose ``host`` store is reserved at full size, then,
+    when ``pinned``, flagged page-locked as a CUDA backend's is (reserved
+    first, so no growth asks for page-locked pages on the CPU)."""
+    be = cpu_backend()
+    be.reserve(host, size_mb)
+    if pinned:
+        monkeypatch.setattr(be.store_for(host), "pin", True)
+    return be
+
+
+@pytest.mark.parametrize("pinned", [True, False], ids=["pinned", "unpinned"])
+@pytest.mark.parametrize("case", ["h2g", "reload"])
+def test_page_locked_host_uploads_in_place(monkeypatch, case, pinned):
+    """A cut-through plan from a page-locked host store uploads every
+    batch from the store's own rows: no byte lands in the ring, and the
+    report (chunks, batches, stripes, the reserved window, hops,
+    progress) equals the JAX reference's for the same plan.  An
+    unpinned store stages every batch as before."""
+    topo_fn, kind, src, dst, kw = MATRIX[case]
+    did = f"direct-{case}"
+    jrep = JaxBackend().execute(
+        make_engine(topo_fn, staging=CUT_THROUGH, **kw).compile(
+            kind, "t", src, dst, DIRECT_MB, data_id=did))
+    tb = _host_backend(monkeypatch, src, pinned, DIRECT_MB)
+    _, trep = run_plan(port_engine(PORT_TOPO[case], staging=CUT_THROUGH,
+                                   **kw),
+                       tb, kind, src, dst, DIRECT_MB, did)
+    np.testing.assert_array_equal(tb.read_object(did, dst),
+                                  oracle(did, DIRECT_MB))
+    for f in ("n_chunks", "n_batches", "stripes", "peak_staging_mb",
+              "hop_trace"):
+        assert getattr(trep, f) == getattr(jrep, f), f
+    assert [mb for mb, _ in trep.events] == [mb for mb, _ in jrep.events]
+    assert trep.n_batches == 3
+    assert trep.direct_batches == (trep.n_batches if pinned else 0)
+    ring = tb.rings[src]
+    assert ring.peak_mb == trep.peak_staging_mb > 0
+    assert ring.in_flight_mb == 0.0
+    assert bool(ring.buf.any()) is not pinned
+
+
+def test_fragmented_page_locked_object_stages_only_broken_batches(
+        monkeypatch):
+    """A page-locked host object whose rows break once (it fills a hole
+    left by a dropped object): the batch across the break is staged
+    through the ring, the two run batches upload in place, and the bytes
+    and the report still equal the reference's."""
+    be = _host_backend(monkeypatch, "host", True, 64.0)
+    for did, mb in (("fa", 4.0), ("fb", 4.0), ("fc", 2.0)):
+        be.put_object(did, "host", size_mb=mb)
+    be.drop_object("fb", "host")
+    be.put_object("fe", "host", size_mb=30.0)
+    assert be.store_for("host").objects["fe"].rows == \
+        (2, 3, *range(5, 18))
+    jrep = JaxBackend().execute(make_engine().compile(
+        "h2g", "t", "host", "gpu1", 30.0, data_id="fe"))
+    _, rep = run_plan(port_engine(), be, "h2g", "host", "gpu1", 30.0, "fe")
+    np.testing.assert_array_equal(be.read_object("fe", "gpu1"),
+                                  oracle("fe", 30.0))
+    assert (rep.n_batches, rep.direct_batches) == (3, 2)
+    for f in ("n_chunks", "n_batches", "stripes", "peak_staging_mb",
+              "hop_trace"):
+        assert getattr(rep, f) == getattr(jrep, f), f
+    assert [mb for mb, _ in rep.events] == [mb for mb, _ in jrep.events]
+    assert be.rings["host"].buf.any()        # the broken batch was staged

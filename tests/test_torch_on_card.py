@@ -141,6 +141,96 @@ def test_backend_on_card_matches_cpu(cuda_device, case, staging):
     assert [mb for mb, _ in card.events] == [mb for mb, _ in cpu.events]
 
 
+UPLOAD_MB = 128.0       # 64 chunks, 13 trigger batches
+
+
+def upload_report(device: str, data_id: str):
+    """One cut-through host -> gpu1 transfer of ``UPLOAD_MB`` on a fresh
+    backend (the object put at the host first): the backend and its
+    ``ExecReport``."""
+    topo = ttopo.dgx_v100()
+    eng = TransferEngine(LinkSim(topo), PathFinder(topo),
+                         CircularPinnedBuffer(), topo, staging=CUT_THROUGH)
+    be = TorchBackend(device=device)
+    be.put_object(data_id, "host", size_mb=UPLOAD_MB)
+    return be, be.execute(eng.compile("h2g", "t", "host", "gpu1",
+                                      UPLOAD_MB, data_id=data_id))
+
+
+_PROFILE_UPLOAD = """
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, sys.argv[1])
+from test_torch_on_card import UPLOAD_MB, upload_report
+from repro_torch.core.backend_torch import nbytes_of, synth_payload
+from repro_torch.kernels.chunked_copy import kernel as K
+K.load_library()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    be, rep = upload_report("cuda", "upload")
+    torch.cuda.synchronize()
+prof.export_chrome_trace(sys.argv[2])
+ev = [e for e in json.load(open(sys.argv[2]))["traceEvents"]
+      if e.get("ph") == "X"]
+print(json.dumps({
+    "same": bool((be.read_object("upload", "gpu1")
+                  == synth_payload("upload", nbytes_of(UPLOAD_MB))).all()),
+    "pinned": be.stores["host"].slabs.is_pinned(),
+    "ring_written": bool(be.rings["host"].buf.any()),
+    "scatters": K.scatter_chunks.launches,
+    "report": {f: getattr(rep, f) for f in (
+        "n_batches", "direct_batches", "peak_staging_mb", "hop_trace")},
+    "events_mb": [mb for mb, _ in rep.events],
+    "memcpy": sorted({e["name"] for e in ev
+                      if e.get("cat") == "gpu_memcpy"}),
+    "ft": sorted({e["name"] for e in ev if e.get("cat") == "user_annotation"
+                  and e["name"].startswith("ft:")})}))
+"""
+
+
+@pytest.mark.cuda
+def test_page_locked_upload_reads_the_host_store_in_place(cuda_device,
+                                                          tmp_path):
+    """A 128 MB cut-through host -> card transfer: the host store is
+    page-locked and one run, so every trigger batch's DMA reads it in
+    place (``direct_batches == n_batches``), the ring window stays
+    unwritten, every batch still lands through the scatter kernel, the
+    bytes are the oracle's, and the report's staging, hops and progress
+    equal the CPU backend's (which stages every batch).  Under the
+    profiler (in a process of its own: the card's tracer records device
+    work in the first profiler session of a process only) the trace
+    holds page-locked uploads and no ``ft:backend.stage`` range."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(here.parent / "src"), os.environ.get("PYTHONPATH", "")]))
+    res = subprocess.run([sys.executable, "-c", _PROFILE_UPLOAD, str(here),
+                          str(tmp_path / "trace.json")], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-2000:]
+    card = json.loads(res.stdout.strip().splitlines()[-1])
+    _, cpu = upload_report("cpu", "upload")
+    rep = card["report"]
+    assert card["same"] and card["pinned"] and not card["ring_written"]
+    assert rep["n_batches"] == cpu.n_batches == 13
+    assert rep["direct_batches"] == rep["n_batches"] and \
+        cpu.direct_batches == 0
+    assert card["scatters"] == rep["n_batches"]
+    assert rep["peak_staging_mb"] == cpu.peak_staging_mb
+    assert rep["hop_trace"] == cpu.hop_trace
+    assert card["events_mb"] == [mb for mb, _ in cpu.events]
+    assert "Memcpy HtoD (Pinned -> Device)" in card["memcpy"], card["memcpy"]
+    assert "ft:backend.execute" in card["ft"] and \
+        "ft:copy.wait" in card["ft"] and \
+        "ft:backend.stage" not in card["ft"], card["ft"]
+
+
 # ------------------------------------- chaos and the swap tier on the card -
 
 def _chip_smoke():

@@ -109,3 +109,38 @@ def test_host_to_device_walk_stages_once_a_trigger_batch(tmp_path):
     assert all(w0 <= a and b <= w1 for _, a, b in stages)
     assert rep.hop_trace == plain.hop_trace
     assert [mb for mb, _ in rep.events] == [mb for mb, _ in plain.events]
+
+
+def test_page_locked_host_walk_stages_nothing(tmp_path, monkeypatch):
+    """The same 23 MB walk from a host store flagged page-locked (as a
+    CUDA backend's is): every batch uploads from the store in place, so
+    the one ``ft:backend.execute`` holds no ``ft:backend.stage``, and
+    still holds its blocking waits (``ft:copy.wait``, here on a stand-in
+    event, since the CPU records none) at least one a trigger batch."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import backend_torch
+    from repro_torch.kernels.chunked_copy import pipeline
+    event = SimpleNamespace(synchronize=lambda: None)
+    for mod in (backend_torch, pipeline):
+        monkeypatch.setattr(mod, "record", lambda t: event)
+    topo = ttopo.dgx_v100()
+    eng = TransferEngine(LinkSim(topo), PathFinder(topo),
+                         CircularPinnedBuffer(), topo, staging=CUT_THROUGH)
+    be = TorchBackend(device="cpu")
+    be.reserve("host", 23.0)
+    monkeypatch.setattr(be.store_for("host"), "pin", True)
+    plan = eng.compile("h2g", "t", "host", "gpu1", 23.0, data_id="w")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rep = be.execute(plan)
+    np.testing.assert_array_equal(be.read_object("w", "gpu1"),
+                                  synth_payload("w", nbytes_of(23.0)))
+    assert rep.direct_batches == rep.n_batches == 3
+    got = _ft_ranges(prof, tmp_path)
+    names = [n for n, _, _ in got]
+    assert "ft:backend.stage" not in names
+    walks = [r for r in got if r[0] == "ft:backend.execute"]
+    waits = [r for r in got if r[0] == "ft:copy.wait"]
+    assert len(walks) == 1 and len(waits) >= rep.n_batches
+    (_, w0, w1), = walks
+    assert all(w0 <= a and b <= w1 for _, a, b in waits)
