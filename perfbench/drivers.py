@@ -15,10 +15,10 @@ from dataclasses import dataclass, field
 
 import torch
 
+import harness
 import system
 import traffic as T
 import weights as W
-from reference import decoder as ref
 from work import percentile
 
 
@@ -39,6 +39,16 @@ class Ctx:
     @property
     def arch(self) -> dict:
         return self.config["arch"]
+
+    @property
+    def family(self):
+        """The configuration's model family (``families/<reference>.py``)."""
+        return harness.family(self.config["reference"])
+
+    @property
+    def reference(self):
+        """Its plain float32 forward (``reference/<reference>.py``)."""
+        return harness.reference(self.config["reference"])
 
     def sync(self):
         if self.device.type == "cuda":
@@ -83,11 +93,14 @@ class Outcome:
 
 
 def _weights(ctx: Ctx):
+    """The port's configuration, the benchmark's weights drawn from the
+    family's table, and the port's tree of views of them."""
     cfg = system.arch_config(ctx.arch)
-    w = W.make(ctx.arch, ctx.config.get("init", {}),
+    w = W.make(ctx.family.leaves(ctx.arch), ctx.arch,
+               ctx.config.get("init", {}),
                T.stream_seed(ctx.seed, T.STREAM_WEIGHTS), ctx.device,
                ctx.dtype)
-    return cfg, w
+    return cfg, w, system.program_params(cfg, w, ctx.family, ctx.arch)
 
 
 # ------------------------------------------------------------- prefill --
@@ -98,10 +111,9 @@ def prefill(ctx: Ctx) -> Outcome:
     of the last position's logits) are on the host."""
     mix = ctx.traffic
     cycle = T.prefill_batches(mix)
-    cfg, w = _weights(ctx)
+    cfg, w, params = _weights(ctx)
     vocab = ctx.arch["vocab_size"]
-    eng = system.engine(cfg, system.program_params(cfg, w), ctx.device,
-                        max(L for L, _ in cycle),
+    eng = system.engine(cfg, params, ctx.device, max(L for L, _ in cycle),
                         max(B for _, B in cycle))
 
     def serve(toks):
@@ -133,7 +145,7 @@ def prefill(ctx: Ctx) -> Outcome:
                         "tokens": toks, "served": served})
         i += 1
     peak = ctx.memory_peak()
-    del eng
+    del eng, params
     ttft_ms = [b["ttft_s"] * 1e3 for b in batches for _ in range(b["B"])]
     gaps = judge(ctx, w, prefill_sample(ctx, batches))
     return Outcome(
@@ -148,10 +160,11 @@ def prefill(ctx: Ctx) -> Outcome:
 
 
 def prefill_sample(ctx: Ctx, batches: list) -> list:
-    """The requests to compare, drawn from the seed.  Where the model
-    routes over the whole batch (the experts' capacity couples the
-    rows): every row of ``compare_batches_moe`` batches of each length,
-    so that every seed compares as many rows of each length.  Else
+    """The requests to compare, drawn from the seed.  Where a row's
+    result depends on the other rows of its batch (the family's
+    ``couples_rows``, as the experts' capacity does): every row of
+    ``compare_batches_moe`` batches of each length, so that every seed
+    compares as many rows of each length.  Else
     ``compare_rows_dense`` rows of a batch of the longest length and of
     one of another.  Each as (tokens, positions, served tokens)."""
     rng = ctx.sample_rng()
@@ -159,7 +172,7 @@ def prefill_sample(ctx: Ctx, batches: list) -> list:
     for b in batches:
         by_len.setdefault(b["L"], []).append(b)
     longest = max(by_len)
-    if ctx.arch.get("n_experts"):
+    if ctx.family.couples_rows(ctx.arch):
         n = ctx.traffic["compare_batches_moe"]
         return [(b["tokens"], [b["L"] - 1], b["served"][:, None])
                 for L in sorted(by_len)
@@ -184,7 +197,9 @@ def judge(ctx: Ctx, w: dict, items: list) -> dict:
     cell can compare), the share that is not 0 and their count.  With
     ``ctx.control``, the same of the control's: the reference in fp8,
     the token it puts first at each of the same positions, judged by
-    the float32 reference."""
+    the float32 reference.  The reference is the configuration's
+    family's."""
+    ref = ctx.reference
     prog, ctrl = [], []
     with torch.no_grad():
         for toks, positions, served in items:
@@ -222,9 +237,8 @@ def decode(ctx: Ctx) -> Outcome:
     synchronisation in the loop."""
     mix = ctx.traffic
     B, P, S = mix["batch"], mix["prompt_len"], mix["cache_len"]
-    cfg, w = _weights(ctx)
-    eng = system.engine(cfg, system.program_params(cfg, w), ctx.device,
-                        S, B)
+    cfg, w, params = _weights(ctx)
+    eng = system.engine(cfg, params, ctx.device, S, B)
     prompt = T.tokens(ctx.seed, 0, (B, P), ctx.arch["vocab_size"],
                       ctx.device)
     logits, caches = eng.prefill({"tokens": prompt})
@@ -270,7 +284,7 @@ def decode(ctx: Ctx) -> Outcome:
                 else (marks[j + 1] - marks[j]) * 1e3)
                for j in range(len(marks) - 1)]
     peak = ctx.memory_peak()
-    del eng, caches
+    del eng, params, caches
     steps = len(outs)
     gaps = judge(ctx, w, decode_sample(ctx, prompt, first, outs))
     return Outcome(

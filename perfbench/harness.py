@@ -7,7 +7,10 @@ is a file of its own, found by name:
 ``configs/<config>.json``, ``traffic/<mix>.json``,
 ``limits/<workload>.json`` and ``metrics/<metric>.py`` (whose
 ``read(ctx, outcome)`` returns the metric, or None where it finds
-nothing to read).
+nothing to read).  A configuration's ``reference`` names its model
+family: ``reference/<reference>.py``, the plain float32 forward, and
+``families/<reference>.py``, its leaves, their place in the port's
+tree and its counts.
 """
 from __future__ import annotations
 
@@ -51,14 +54,34 @@ def metrics_for(spec: dict, workload: str, kind: str) -> list:
             if workload in m.get("workloads", [workload])]
 
 
-def reader(name: str):
-    path = HERE / "metrics" / f"{name}.py"
-    mod_name = "perfbench_metric_" + "".join(
+def _load(kind: str, name: str):
+    """``<kind>/<name>.py`` under ``HERE`` as a module, loaded once."""
+    path = HERE / kind / f"{name}.py"
+    mod_name = f"perfbench_{kind}_" + "".join(
         ch if ch.isalnum() else "_" for ch in name)
+    if mod_name in sys.modules:
+        return sys.modules[mod_name]
+    if not path.is_file():
+        raise SystemExit(f"perfbench: no {path}")
     spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    sys.modules[mod_name] = mod
+    return mod
+
+
+def reader(name: str):
+    return _load("metrics", name).read
+
+
+def family(name: str):
+    """The model family ``name``'s leaves, tree and counts."""
+    return _load("families", name)
+
+
+def reference(name: str):
+    """The model family ``name``'s plain float32 forward."""
+    return _load("reference", name)
 
 
 def forbidden_modules(names=None) -> list:

@@ -7,11 +7,14 @@ Per layer: RMSNorm, q/k/v projections, rotary embedding (the half-split
 form, ``theta ** (-i / (D/2))``), causal softmax attention at
 ``1/sqrt(D)`` with each q head reading kv head ``h // (Hq / Hkv)``, the
 output projection into the residual; RMSNorm, then the gated-SiLU MLP,
-or the mixture of experts: an f32 softmax router, top-k with the gates
+or, on the layers where ``i % moe_every == moe_offset % moe_every``
+(every layer by default) of a model with experts, the mixture of
+experts: an f32 softmax router, top-k with the gates
 renormalised, each assignment's rank within its expert in token order,
 a capacity of ``int(capacity_factor * T * k / E) + 1`` assignments per
 expert over the T tokens of the batch with the overflow dropped, and
-the gate-weighted sum of the kept experts' gated-SiLU outputs.  A tied
+the gate-weighted sum of the kept experts' gated-SiLU outputs.  Each
+FFN leaf is stacked over the layers of its kind only.  A tied
 model scales its embedding by sqrt(d_model) and reads its logits off
 the table.
 
@@ -93,6 +96,7 @@ def _gated(h, wg, wu, wd, quant):
 
 
 def dense_ffn(h, w, i, quant, block: int = 8192):
+    """h (T, D) -> (T, D): the ``i``-th dense layer's MLP."""
     out = torch.empty_like(h)
     for s in range(0, h.shape[0], block):
         out[s:s + block] = _gated(h[s:s + block], w["wi_gate"][i],
@@ -101,7 +105,8 @@ def dense_ffn(h, w, i, quant, block: int = 8192):
 
 
 def moe_ffn(h, w, i, arch, quant):
-    """h (T, D) -> (T, D): the routed experts over all T tokens."""
+    """h (T, D) -> (T, D): the ``i``-th MoE layer's routed experts over
+    all T tokens."""
     T = h.shape[0]
     E, k = arch["n_experts"], arch["top_k"]
     probs = torch.softmax(mm(h, w["router"][i], quant), dim=-1)
@@ -134,6 +139,8 @@ def logits_at(arch: dict, w: dict, tokens: torch.Tensor, positions,
     hd = arch.get("head_dim") or D // H
     eps, theta = arch.get("norm_eps", 1e-6), arch["rope_theta"]
     tied = arch.get("tie_embeddings", False)
+    every = arch.get("moe_every", 1)
+    n_moe = 0
     x = w["table"][tokens].float()
     if tied:
         x = x * math.sqrt(D)
@@ -150,10 +157,12 @@ def logits_at(arch: dict, w: dict, tokens: torch.Tensor, positions,
         x = x + mm(o, w["wo"][i].reshape(H * hd, D), quant)
         del o
         h = rmsnorm(x, w["ln2"][i], eps).reshape(B * L, D)
-        if arch.get("n_experts"):
-            y = moe_ffn(h, w, i, arch, quant)
+        if arch.get("n_experts") and \
+                i % every == arch.get("moe_offset", 0) % every:
+            y = moe_ffn(h, w, n_moe, arch, quant)
+            n_moe += 1
         else:
-            y = dense_ffn(h, w, i, quant)
+            y = dense_ffn(h, w, i - n_moe, quant)
         x = x + y.view(B, L, D)
         del h, y
     xl = rmsnorm(x[:, list(positions)], w["ln_f"], eps)

@@ -30,38 +30,58 @@ def arch_config(arch: dict):
     return ArchConfig(**arch)
 
 
-def program_params(cfg, w: dict) -> dict:
-    """The benchmark's weights (``weights.py``) as the port's parameter
-    tree, by views: every layer one unit of one run, as the port stacks
-    a period-1 pattern.  Each leaf's shape and dtype is held to the
+def _layers_view(t: torch.Tensor, held: tuple, rows: list,
+                 m: int) -> torch.Tensor:
+    """Layers ``rows`` (n lists of m layer indices) of a leaf ``t``
+    stacked over the layers ``held``, as one ``(n, m, ...)`` view.  Their
+    places in ``t`` have to step evenly along both axes, as a periodic
+    layout's do."""
+    pos = [[held.index(i) for i in row] for row in rows]
+    n = len(pos)
+    base = pos[0][0] if n else 0
+    a = pos[1][0] - base if n > 1 else 1
+    b = pos[0][1] - base if m > 1 else 1
+    if any(pos[u][j] != base + u * a + j * b
+           for u in range(n) for j in range(m)):
+        raise ValueError(f"layers {rows} are not evenly spaced in {held}")
+    if not t.is_contiguous():
+        raise ValueError("a drawn leaf is not contiguous")
+    s0 = t.stride(0)
+    return t.as_strided((n, m, *t.shape[1:]), (a * s0, b * s0,
+                                                *t.stride()[1:]),
+                        t.storage_offset() + base * s0)
+
+
+def program_params(cfg, w: dict, fam, arch: dict) -> dict:
+    """The benchmark's weights (``weights.py``, drawn from ``fam``'s
+    table) as the port's parameter tree, by views only: for each run of
+    the port's layout (``layout_for(cfg, block_pattern(cfg))``), the
+    family's tree of its block kind with each leaf the view of its
+    layers, ``(n_units, run_len, ...)`` in a unit and ``(run_len, ...)``
+    in the rest.  Each leaf's path, shape and dtype is held to the
     port's own spec."""
     from repro_torch.models import model as M
     from repro_torch.models import param as PM
     from repro_torch.models.blocks import block_pattern, layout_for
     layout = layout_for(cfg, block_pattern(cfg))
-    L = cfg.n_layers
-    if len(layout.runs) != 1 or layout.runs[0][1] != 1 \
-            or layout.n_units != L or layout.rest_runs:
-        raise ValueError(f"{cfg.name}: layout {layout} is not one layer a "
-                         f"unit")
+    table = fam.leaves(arch)
+    period = sum(rl for _, rl in layout.runs)
 
-    def unit(t):
-        return t.view(L, 1, *t.shape[1:])
-    block = {"ln1": {"scale": unit(w["ln1"])},
-             "attn": {n: unit(w[n]) for n in ("wq", "wk", "wv", "wo")},
-             "ln2": {"scale": unit(w["ln2"])}}
-    if cfg.n_experts:
-        block["moe"] = {"router": unit(w["router"]),
-                        "wi_gate": unit(w["we_gate"]),
-                        "wi_up": unit(w["we_up"]), "wo": unit(w["we_down"])}
-    else:
-        block["mlp"] = {"wi_gate": unit(w["wi_gate"]),
-                        "wi_up": unit(w["wi_up"]), "wo": unit(w["w_down"])}
-    embed = {"table": w["table"]}
-    if "lm_head" in w:
-        embed["lm_head"] = w["lm_head"]
-    params = {"embed": embed, "ln_f": {"scale": w["ln_f"]},
-              "blocks": {"units": [block], "rest": []}}
+    def run(kind, rows, rl):
+        return PM.tree_map(lambda name: _layers_view(
+            w[name], table[name].layers, rows, rl), fam.block(arch, kind))
+    units, start = [], 0
+    for kind, rl in layout.runs:
+        units.append(run(kind, [[u * period + start + i for i in range(rl)]
+                                for u in range(layout.n_units)], rl))
+        start += rl
+    rest, start = [], layout.n_units * period
+    for kind, rl in layout.rest_runs:
+        rest.append(PM.tree_map(lambda t: t[0], run(
+            kind, [list(range(start, start + rl))], rl)))
+        start += rl
+    params = PM.tree_map(lambda name: w[name], fam.top(arch))
+    params["blocks"] = {"units": units, "rest": rest}
     specs = dict(PM.tree_leaves_with_paths(M.model_specs(cfg)))
     have = dict(PM.tree_leaves_with_paths(params))
     if specs.keys() != have.keys():

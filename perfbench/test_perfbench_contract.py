@@ -67,6 +67,16 @@ def test_benchmark_names_its_files():
         assert (HERE / "metrics" / f"{m['name']}.py").is_file()
 
 
+@pytest.mark.parametrize("config", SPEC["configs"], ids=lambda c: c["name"])
+def test_every_reference_has_both_modules(config):
+    """A configuration's ``reference`` names its family: the plain
+    forward and the family's leaves, tree and counts."""
+    ref = json.loads((HERE.parent / config["file"]).read_text())["reference"]
+    assert NAME.match(ref)
+    assert (HERE / "reference" / f"{ref}.py").is_file()
+    assert (HERE / "families" / f"{ref}.py").is_file()
+
+
 def test_every_cell_reports_what_its_metrics_move():
     e2e = {m["name"]: m for m in SPEC["end_to_end"]}
     assert e2e["setup_s"]["bound"] <= 0.25

@@ -1,7 +1,7 @@
 """The benchmark's arithmetic against hand-worked values: the union of
 busy intervals, percentiles over every sample, flash's bytes and
-FLOPs, model FLOPs, a decode step's bytes, the PCIe bound, and each
-per-layer reader on a slice made by hand."""
+FLOPs, model FLOPs and a decode step's bytes (the decoder family's),
+the PCIe bound, and each per-layer reader on a slice made by hand."""
 import json
 import types
 
@@ -10,6 +10,8 @@ import pytest
 import harness
 import tracing
 import work
+
+DECODER = harness.family("decoder")
 
 
 def test_busy_union_merges_overlaps_and_skips_nested():
@@ -41,26 +43,49 @@ ARCH = {"n_layers": 2, "d_model": 8, "n_heads": 2, "n_kv_heads": 1,
         "head_dim": 4, "d_ff": 16, "vocab_size": 100, "tie_embeddings": True}
 
 
+def _ctx(arch):
+    return types.SimpleNamespace(arch=arch, config={"reference": "decoder",
+                                                    "arch": arch})
+
+
 def test_model_flops_and_bytes_by_hand():
     # attention: q, o 8x8 each, k, v 8x4 each: 64+64+32+32 = 192
     # MLP: 3 x 8 x 16 = 384
-    assert work.layer_params(ARCH) == {"attn": 192, "ffn_active": 384,
-                                       "ffn_stored": 384}
+    assert DECODER.layer_params(ARCH, 0) == {"attn": 192, "ffn_active": 384,
+                                         "ffn_stored": 384}
     # one batch of B=2, L=3: 2 layers x (2 x 576 x 6 tokens + causal
     # attention 4 x 4 x 2 heads x 6 pairs x 2 rows) + logits 2 x 8 x 100 x 2
-    assert work.prefill_flops(ARCH, 2, 3) == \
+    assert DECODER.prefill_flops(ARCH, 2, 3) == \
         2 * (2 * 576 * 6 + 4 * 4 * 2 * 6 * 2) + 2 * 2 * 8 * 100
     # one decode step of B=2 at pos 4: per token 2 x (2 x 576 + 4 x 2 x 4
     # x 5) + logits 2 x 8 x 100
-    assert work.decode_flops(ARCH, 2, 4) == \
+    assert DECODER.decode_flops(ARCH, 2, 4) == \
         2 * (2 * (2 * 576 + 4 * 2 * 4 * 5) + 2 * 8 * 100)
     # weights 2 x 576 + the padded tied table 128 x 8, in bf16; K and V
     # of 5 positions of 2 sequences, 2 layers x 2 x 1 head x 4 x 2 bytes
-    assert work.decode_bytes(ARCH, 2, 4) == \
+    assert DECODER.decode_bytes(ARCH, 2, 4) == \
         (2 * 576 + 128 * 8) * 2 + 2 * 5 * 2 * 2 * 1 * 4 * 2
     moe = dict(ARCH, n_experts=4, top_k=2, tie_embeddings=False)
-    assert work.layer_params(moe)["ffn_active"] == 8 * 4 + 2 * 384
-    assert work.layer_params(moe)["ffn_stored"] == 8 * 4 + 4 * 384
+    assert DECODER.layer_params(moe, 1)["ffn_active"] == 8 * 4 + 2 * 384
+    assert DECODER.layer_params(moe, 1)["ffn_stored"] == 8 * 4 + 4 * 384
+
+
+def test_counts_go_layer_by_layer():
+    """A period-2 decoder (MoE on layer 1 of 2) counts the dense MLP on
+    layer 0 and the router and experts on layer 1."""
+    mixed = dict(ARCH, n_experts=4, top_k=2, moe_every=2, moe_offset=1)
+    assert [DECODER.is_moe(mixed, i) for i in range(2)] == [False, True]
+    # per token: 2 x (192 + 384) on layer 0, 2 x (192 + 32 + 2 x 384) on 1
+    assert DECODER.prefill_flops(mixed, 2, 3) == \
+        2 * (192 + 384) * 6 + 2 * (192 + 32 + 768) * 6 \
+        + 2 * 4 * 4 * 2 * 6 * 2 + 2 * 2 * 8 * 100
+    assert DECODER.decode_flops(mixed, 2, 4) == \
+        2 * (2 * (192 + 384) + 2 * (192 + 32 + 768) + 2 * 4 * 2 * 4 * 5
+             + 2 * 8 * 100)
+    # stored: 192 + 384 on layer 0, 192 + 32 + 4 x 384 on layer 1
+    assert DECODER.decode_bytes(mixed, 2, 4) == \
+        (192 + 384 + 192 + 32 + 4 * 384 + 128 * 8) * 2 \
+        + 2 * 5 * 2 * 2 * 1 * 4 * 2
 
 
 def test_pcie_and_roofline_bounds():
@@ -85,7 +110,7 @@ def _read(name, ctx, out):
 
 def test_readers_by_hand():
     arch = dict(ARCH, n_heads=2, n_kv_heads=1, head_dim=4)
-    ctx = types.SimpleNamespace(arch=arch)
+    ctx = _ctx(arch)
     out = types.SimpleNamespace(slice=_slice(), records={})
     assert _read("idle_share.prefill", ctx, out) == pytest.approx(50.0)
     nbytes, flops = work.flash_work(1, 2, 1, 4, 4, 4, True, 0, 2)
@@ -93,16 +118,18 @@ def test_readers_by_hand():
     assert _read("flash_roofline.prefill", ctx, out) == \
         pytest.approx(100 * 2 * bound / 0.02)
     assert _read("mfu.prefill", ctx, out) == pytest.approx(
-        100 * 2 * work.prefill_flops(arch, 1, 4) / work.PEAK_BF16_FLOPS)
+        100 * 2 * DECODER.prefill_flops(arch, 1, 4) / work.PEAK_BF16_FLOPS)
     dec = types.SimpleNamespace(slice=tracing.Slice(
         window_s=0.2, busy_s=0.19, device=[], items={},
         meta={5: {"B": 2, "pos": 10}, 6: {"B": 2, "pos": 11}}), records={})
     assert _read("idle_share.decode", ctx, dec) == pytest.approx(5.0)
     assert _read("step_roofline.decode", ctx, dec) == pytest.approx(
-        100 * (work.decode_bytes(arch, 2, 10) + work.decode_bytes(arch, 2, 11))
+        100 * (DECODER.decode_bytes(arch, 2, 10)
+               + DECODER.decode_bytes(arch, 2, 11))
         / work.PEAK_HBM_BYTES_PER_S / 0.2)
     assert _read("mfu.decode", ctx, dec) == pytest.approx(
-        100 * (work.decode_flops(arch, 2, 10) + work.decode_flops(arch, 2, 11))
+        100 * (DECODER.decode_flops(arch, 2, 10)
+               + DECODER.decode_flops(arch, 2, 11))
         / work.PEAK_BF16_FLOPS / 0.2)
     rel = [{"cold_s": 0.5, "wall_s": 0.4, "bytes": 6.4e9, "traced": False},
            {"cold_s": 0.7, "wall_s": 0.6, "bytes": 6.4e9, "traced": False},
@@ -122,7 +149,7 @@ def test_idle_gaps_name_the_host_op_open_mid_gap():
 
 
 def test_readers_return_nothing_without_a_slice():
-    ctx = types.SimpleNamespace(arch=ARCH)
+    ctx = _ctx(ARCH)
     out = types.SimpleNamespace(slice=None, records={})
     for name in ("mfu.prefill", "flash_roofline.prefill", "idle_share.prefill",
                  "mfu.decode", "step_roofline.decode", "idle_share.decode",

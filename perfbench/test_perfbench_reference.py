@@ -1,5 +1,6 @@
-"""The plain reference (``reference/decoder.py``) agrees with the port on
-each configuration cut to a small size, on the CPU in float32: prefill's
+"""The plain reference (``reference/<reference>.py``, the configuration's
+family's) agrees with the port on each configuration cut to a small
+size, on the CPU in float32: prefill's
 last-position logits, and every decode step's logits against the
 reference's forward over the prompt and the tokens fed (the port keeps
 its K/V cache in bf16, the configuration's cache type, so decode agrees
@@ -8,10 +9,10 @@ import pytest
 import torch
 
 import _testkit as K
+import harness
 import system
 import traffic as T
 import weights as W
-from reference import decoder as ref
 
 CONFIGS = sorted({c["config"] for c in K.cells()})
 #: the configurations a decode cell serves: the experts' capacity makes a
@@ -22,16 +23,21 @@ CPU = torch.device("cpu")
 
 
 def _setup(name, seed=K.SEEDS[0]):
+    """arch, weights, the port's configuration and tree, and the
+    family's reference."""
     cfg = K.small_config(name)
     arch = cfg["arch"]
-    w = W.make(arch, cfg.get("init", {}), seed, CPU, torch.float32)
+    fam = harness.family(cfg["reference"])
+    w = W.make(fam.leaves(arch), arch, cfg.get("init", {}), seed, CPU,
+               torch.float32)
     pc = system.arch_config(arch)
-    return arch, w, pc, system.program_params(pc, w)
+    return (arch, w, pc, system.program_params(pc, w, fam, arch),
+            harness.reference(cfg["reference"]))
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_prefill_logits_match_the_port(name):
-    arch, w, pc, params = _setup(name)
+    arch, w, pc, params, ref = _setup(name)
     toks = T.tokens(K.SEEDS[0], 0, (3, 24), arch["vocab_size"], CPU)
     eng = system.engine(pc, params, CPU, 24, 3)
     got, _ = eng.prefill({"tokens": toks})
@@ -43,7 +49,7 @@ def test_prefill_logits_match_the_port(name):
 
 @pytest.mark.parametrize("name", DECODED)
 def test_decode_logits_match_the_reference_forward(name):
-    arch, w, pc, params = _setup(name)
+    arch, w, pc, params, ref = _setup(name)
     B, P, S, n = 2, 8, 20, 6
     prompt = T.tokens(K.SEEDS[1], 0, (B, P), arch["vocab_size"], CPU)
     eng = system.engine(pc, params, CPU, S, B)
@@ -69,14 +75,15 @@ def test_decode_logits_match_the_reference_forward(name):
 def test_moe_capacity_drops_the_overflow_in_token_order():
     """With a capacity below the load, the reference keeps each expert's
     first assignments in token order and drops the rest, as the port."""
-    arch, w, pc, params = _setup(next(n for n in CONFIGS
-                                      if K.small_config(n)["arch"].get(
-                                          "n_experts")))
+    name = next(n for n in CONFIGS
+                if K.small_config(n)["arch"].get("n_experts"))
+    arch, w, pc, params, ref = _setup(name)
     arch = dict(arch, capacity_factor=0.5)
     pc = system.arch_config(arch)
+    fam = harness.family(K.small_config(name)["reference"])
     toks = T.tokens(K.SEEDS[0], 1, (2, 16), arch["vocab_size"], CPU)
-    got, _ = system.engine(pc, system.program_params(pc, w), CPU, 16,
-                           2).prefill({"tokens": toks})
+    got, _ =system.engine(pc, system.program_params(pc, w, fam, arch), CPU,
+                           16, 2).prefill({"tokens": toks})
     want = ref.logits_at(arch, w, toks, [15])[:, 0]
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
     full = ref.logits_at(dict(arch, capacity_factor=8.0), w, toks, [15])
@@ -85,7 +92,7 @@ def test_moe_capacity_drops_the_overflow_in_token_order():
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_fp8_control_rounds_every_product(name):
-    arch, w, _, _ = _setup(name)
+    arch, w, _, _, ref = _setup(name)
     toks = T.tokens(K.SEEDS[0], 2, (2, 12), arch["vocab_size"], CPU)
     exact = ref.logits_at(arch, w, toks, [11])
     low = ref.logits_at(arch, w, toks, [11], quant="fp8")
