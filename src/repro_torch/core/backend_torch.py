@@ -37,13 +37,18 @@ device-side steps are ordered among themselves.  The host waits (a CUDA
 event) wherever it touches bytes a copy is still moving: after every
 device-to-host copy before the host reads the window, and at every
 trigger-batch boundary, before the next batch rewrites a ring window
-that an upload reads.  An upload that reads a page-locked host store in
-place needs no more: ``host_to_pool`` waits for it before it returns,
-and nothing writes a store's rows while a walk reads them, so the rows
-hold still for the length of the copy.  Progress events carry REAL
-landed bytes: one event per trigger batch whose bytes are resident at
-the plan destination.  Execution is synchronous wall-clock work at
-submit time and never touches the LinkSim event stream.
+that an upload reads.  Uploads that read a page-locked host store in
+place are not waited for one by one: a stretch of them is one
+``host_to_pool`` pipeline, which queues batch k+1's upload and scatter
+before it waits on batch k and returns (or raises) only once its queue
+has drained.  That is safe because nothing writes a store's rows while
+a walk reads them, so the rows hold still until the pipeline's last
+wait, and because the uploads' device temporaries are freed in stream
+order on the one stream, so none is reused before the scatter that
+reads it has run.  Progress events carry REAL landed bytes: one event
+per trigger batch whose bytes are resident at the plan destination.
+Execution is synchronous wall-clock work at submit time and never
+touches the LinkSim event stream.
 """
 from __future__ import annotations
 
@@ -364,6 +369,9 @@ class ExecReport:
     #: trigger batches whose upload read the page-locked source store in
     #: place, with no copy into a ring window
     direct_batches: int = 0
+    #: direct batches whose upload was queued while an earlier batch of
+    #: the same walk was still unconfirmed
+    overlapped_batches: int = 0
 
 
 class TorchBackend:
@@ -517,15 +525,24 @@ class TorchBackend:
         hop chain before the next enters; intermediate hosts hold only
         one ring window.
 
-        A plan that starts on a host uploads each batch straight from
-        the source store when the store is page-locked and the batch's
-        rows are one run (``ExecReport.direct_batches``): the DMA reads
-        the rows in place, and they hold still, since ``host_to_pool``
-        waits for the upload before it returns and nothing writes a
-        store's rows while a walk reads them.  Any other batch is staged
-        through the ring window (``ft:backend.stage``).  The window is
-        reserved either way, so the report's staging, hops and events do
-        not depend on which batches were staged."""
+        A plan that starts on a host (its one hop an h2g) uploads each
+        batch straight from the source store when the store is
+        page-locked and the batch's rows are one run
+        (``ExecReport.direct_batches``), and walks each stretch of such
+        batches as one ``host_to_pool`` pipeline
+        (:meth:`_upload_in_place`): batch k+1's upload and scatter are
+        queued before the host waits on batch k
+        (``ExecReport.overlapped_batches``), and batch k is marked
+        landed once that wait returns.  The queue is safe because a
+        store's rows hold still until the pipeline's last wait (nothing
+        writes a store's rows while a walk reads them), and the uploads'
+        device temporaries are freed in stream order on the one stream.
+        Any other batch is staged through the ring window
+        (``ft:backend.stage``) and waited for alone; it starts after the
+        stretch before it has drained, since ``host_to_pool`` returns
+        (or raises) only with nothing queued.  The window is reserved
+        either way, so the report's staging, hops and events do not
+        depend on which batches were staged or queued."""
         src_st = self.store_for(plan.src)
         dst_st = self.store_for(plan.dst)
         dst_rows = self._dst_rows(plan, obj)
@@ -542,8 +559,19 @@ class TorchBackend:
                 for hk in dict.fromkeys(staged_hosts)}
         rep.peak_staging_mb = max(
             (self.rings[hk].in_flight_mb for hk in wins), default=0.0)
+        batches = list(self._batches(len(obj.rows)))
+        from_host = src_st.pin and [h.kind for h in hops] == ["h2g"]
         try:
-            for bi, (s, e) in enumerate(self._batches(len(obj.rows))):
+            bi = 0
+            while bi < len(batches):
+                m = self._in_place_stretch(obj.rows, batches, bi) \
+                    if from_host else 0
+                if m:
+                    self._upload_in_place(src_st, dst_st, obj.rows, dst_rows,
+                                          batches, bi, m, rep, landed)
+                    bi += m
+                    continue
+                s, e = batches[bi]
                 nb = e - s
                 cur = None          # host-side rows of the batch in flight
                 for hi, h in enumerate(hops):
@@ -580,24 +608,16 @@ class TorchBackend:
                                       _host_get(src_st.slabs,
                                                 obj.rows[s:e]))
                     elif h.kind == "h2g":
-                        if cur is None:        # plan starts on a host
-                            run = _run(obj.rows[s:e]) if src_st.pin \
-                                else None
-                            if run is not None:
-                                # page-locked rows in one run: the DMA
-                                # reads the store in place
-                                cur = src_st.slabs[run]
-                                rep.direct_batches += 1
-                            elif h.src in wins:
-                                # stage the batch through the src host's
-                                # warm ring window, like pinned staging
-                                cur = self.ring_for(h.src).window(
-                                    wins[h.src], nb)
-                                with span("ft:backend.stage"):
-                                    cur.copy_(_host_get(src_st.slabs,
-                                                        obj.rows[s:e]))
-                            else:
-                                cur = _host_get(src_st.slabs, obj.rows[s:e])
+                        if cur is None and h.src in wins:
+                            # stage the batch through the src host's
+                            # warm ring window, like pinned staging
+                            cur = self.ring_for(h.src).window(
+                                wins[h.src], nb)
+                            with span("ft:backend.stage"):
+                                cur.copy_(_host_get(src_st.slabs,
+                                                    obj.rows[s:e]))
+                        elif cur is None:      # plan starts on a host
+                            cur = _host_get(src_st.slabs, obj.rows[s:e])
                         # waits for the upload: the window is reusable
                         host_to_pool(cur, dst_st.slabs, dst_rows[s:e],
                                      batch=nb)
@@ -606,9 +626,48 @@ class TorchBackend:
                 if dst_st.device:
                     wait(record(dst_st.slabs))
                 landed(e, f"b{bi}:landed")
+                bi += 1
         finally:
             for hk, slots in wins.items():
                 self.rings[hk].release(slots)
+
+    @staticmethod
+    def _in_place_stretch(rows, batches, b0: int) -> int:
+        """How many batches from ``b0`` on have their rows in one run of
+        the source store, and so upload in place as one pipeline; 0 when
+        batch ``b0``'s own rows are not one run."""
+        s0, e0 = batches[b0]
+        end = s0 + 1                    # rows[s0:end] are one run
+        while end < len(rows) and rows[end] == rows[end - 1] + 1:
+            end += 1
+        m = 0
+        while b0 + m < len(batches) and batches[b0 + m][1] <= end:
+            m += 1
+        return m
+
+    def _upload_in_place(self, src_st, dst_st, rows, dst_rows, batches,
+                         b0: int, m: int, rep: ExecReport, landed):
+        """Upload batches ``b0 .. b0 + m - 1``, one run of page-locked
+        host rows, straight from the store as one ``host_to_pool``
+        pipeline, and mark each landed when its wait returns: its
+        ``h2g`` tag, then its ``landed`` event, as the per-batch walk
+        does.  The event after a batch's scatter already means its bytes
+        are on the card, so no second wait."""
+        s0, e0 = batches[b0][0], batches[b0 + m - 1][1]
+        k = iter(range(b0, b0 + m))
+
+        def on_batch(nrows: int):
+            bi = next(k)
+            rep.hop_trace.append(f"b{bi}:h2g")
+            landed(s0 + nrows, f"b{bi}:landed")
+
+        rep.direct_batches += m
+        rep.overlapped_batches += m - 1
+        r0 = rows[s0]
+        host_to_pool(src_st.slabs[r0:r0 + e0 - s0], dst_st.slabs,
+                     dst_rows[s0:e0],
+                     batch=batches[b0][1] - batches[b0][0],
+                     on_batch=on_batch)
 
     def _stripe_order(self, n: int, stripes: int) -> np.ndarray:
         if stripes <= 1:

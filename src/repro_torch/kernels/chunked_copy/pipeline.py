@@ -123,21 +123,34 @@ def pool_to_host(src_pool, src_idx, out, *, batch: int = BATCH_CHUNKS,
 def host_to_pool(src, dst_pool, dst_idx, *, batch: int = BATCH_CHUNKS,
                  on_batch=None):
     """Scatter host rows into a device pool, one trigger batch at a
-    time, boundary-only sync (the upload of batch k+1 is queued before
-    the host waits on batch k).  ``src`` is an (n, C) host tensor that
-    stays untouched until return.  Returns ``dst_pool``."""
+    time, boundary-only sync: batch k+1's upload and scatter are queued
+    before the host waits on batch k's event, so the copy engine has the
+    next batch while the host reports the last one (``on_batch``).  One
+    wait a batch; an exception drains the queue before it leaves.
+
+    ``src`` is an (n, C) host tensor (on a CUDA pool, page-locked for
+    the upload to be asynchronous) that stays untouched until return:
+    a queued upload reads it in place.  Each upload's device temporary is
+    freed while the next is queued, but the caching allocator hands a
+    freed block out again only in stream order, behind the scatter that
+    reads it, since every copy and kernel goes on the one current
+    stream.  Returns ``dst_pool``."""
     n = len(dst_idx)
     dst_idx = np.asarray(dst_idx, np.int32)
     landed, ev = 0, None
-    for s, e in _batches(n, batch):
-        up = src[s:e].to(dst_pool.device, non_blocking=True)
+    try:
+        for s, e in _batches(n, batch):
+            up = src[s:e].to(dst_pool.device, non_blocking=True)
+            scatter(dst_pool, up, dst_idx[s:e])
+            nxt = record(dst_pool)
+            wait(ev)                          # batch k-1 fully landed
+            if landed and on_batch is not None:
+                on_batch(landed)
+            ev, landed = nxt, e
         wait(ev)
-        if landed and on_batch is not None:
-            on_batch(landed)
-        scatter(dst_pool, up, dst_idx[s:e])
-        ev = record(dst_pool)
-        landed = e
-    wait(ev)
+    except BaseException:
+        wait(record(dst_pool))                # no queued copy reads src
+        raise
     if on_batch is not None and n:
         on_batch(n)
     return dst_pool

@@ -271,8 +271,10 @@ def test_page_locked_host_uploads_in_place(monkeypatch, case, pinned):
     """A cut-through plan from a page-locked host store uploads every
     batch from the store's own rows: no byte lands in the ring, and the
     report (chunks, batches, stripes, the reserved window, hops,
-    progress) equals the JAX reference's for the same plan.  An
-    unpinned store stages every batch as before."""
+    progress) equals the JAX reference's for the same plan, and every
+    batch after the first is queued before the one ahead of it is
+    confirmed.  An unpinned store stages every batch as before, one at a
+    time."""
     topo_fn, kind, src, dst, kw = MATRIX[case]
     did = f"direct-{case}"
     jrep = JaxBackend().execute(
@@ -290,6 +292,7 @@ def test_page_locked_host_uploads_in_place(monkeypatch, case, pinned):
     assert [mb for mb, _ in trep.events] == [mb for mb, _ in jrep.events]
     assert trep.n_batches == 3
     assert trep.direct_batches == (trep.n_batches if pinned else 0)
+    assert trep.overlapped_batches == (trep.n_batches - 1 if pinned else 0)
     ring = tb.rings[src]
     assert ring.peak_mb == trep.peak_staging_mb > 0
     assert ring.in_flight_mb == 0.0
@@ -300,7 +303,9 @@ def test_fragmented_page_locked_object_stages_only_broken_batches(
         monkeypatch):
     """A page-locked host object whose rows break once (it fills a hole
     left by a dropped object): the batch across the break is staged
-    through the ring, the two run batches upload in place, and the bytes
+    through the ring, the two run batches upload in place as one
+    pipeline (the second queued behind the first: one overlapped batch;
+    the staged batch 0 has nothing queued ahead of it), and the bytes
     and the report still equal the reference's."""
     be = _host_backend(monkeypatch, "host", True, 64.0)
     for did, mb in (("fa", 4.0), ("fb", 4.0), ("fc", 2.0)):
@@ -315,8 +320,161 @@ def test_fragmented_page_locked_object_stages_only_broken_batches(
     np.testing.assert_array_equal(be.read_object("fe", "gpu1"),
                                   oracle("fe", 30.0))
     assert (rep.n_batches, rep.direct_batches) == (3, 2)
+    assert rep.overlapped_batches == 1
     for f in ("n_chunks", "n_batches", "stripes", "peak_staging_mb",
               "hop_trace"):
         assert getattr(rep, f) == getattr(jrep, f), f
     assert [mb for mb, _ in rep.events] == [mb for mb, _ in jrep.events]
     assert be.rings["host"].buf.any()        # the broken batch was staged
+
+
+# ------------------------------- the queue of a page-locked upload's batches -
+
+class _WalkLog:
+    """What a CPU walk launches and waits for, in order, with stand-in
+    events (the CPU records none): ``("launch", dst_row)`` for a batch's
+    upload and its scatter (the scatter reads the upload, so it is
+    launched after it), ``("record", i)`` and ``("wait", i)`` for event
+    ``i``, ``("stage",)`` for a batch's copy into the ring window and
+    ``("landed", mb)`` for each progress event."""
+
+    def __init__(self, monkeypatch):
+        from types import SimpleNamespace
+
+        from repro_torch.core import backend_torch
+        from repro_torch.kernels.chunked_copy import pipeline
+        self.log = []
+        scatter, host_get = pipeline.scatter, backend_torch._host_get
+
+        def record(t):
+            i = sum(1 for x in self.log if x[0] == "record")
+            self.log.append(("record", i))
+            return SimpleNamespace(
+                synchronize=lambda: self.log.append(("wait", i)))
+
+        def launch(dst, src, idx):
+            self.log.append(("launch", int(np.asarray(idx)[0])))
+            return scatter(dst, src, idx)
+
+        def stage(pool, rows):
+            self.log.append(("stage",))
+            return host_get(pool, rows)
+
+        for mod in (backend_torch, pipeline):
+            monkeypatch.setattr(mod, "record", record)
+        monkeypatch.setattr(pipeline, "scatter", launch)
+        monkeypatch.setattr(backend_torch, "_host_get", stage)
+
+    def landed(self, mb):
+        self.log.append(("landed", mb))
+
+
+def _pinned_walk(monkeypatch, layout, size_mb, did="w", on_progress=None):
+    """A CPU backend whose host store is flagged page-locked, holding
+    ``layout``'s objects (``("put" | "drop", id, mb)`` in order), then
+    ``did``'s ``size_mb``; one cut-through host -> gpu1 walk of ``did``
+    under a :class:`_WalkLog`.  Returns the backend, the log, the
+    report (None if the walk raised) and the exception it raised."""
+    be = _host_backend(monkeypatch, "host", True, 64.0)
+    for op, oid, mb in layout:
+        if op == "put":
+            be.put_object(oid, "host", size_mb=mb)
+        else:
+            be.drop_object(oid, "host")
+    be.put_object(did, "host", size_mb=size_mb)
+    log = _WalkLog(monkeypatch)
+
+    def progress(mb):
+        log.landed(mb)
+        if on_progress is not None:
+            on_progress(mb)
+    plan = port_engine(staging=CUT_THROUGH).compile(
+        "h2g", "t", "host", "gpu1", size_mb, data_id=did)
+    try:
+        return be, log, be.execute(plan, on_progress=progress), None
+    except RuntimeError as err:
+        return be, log, None, err
+
+
+# 24 MB of rows 0-11 freed below one of 2 MB at row 12: a 40 MB object
+# lands on rows 0-11, 13-20, so batches 0-1 are one run, batch 2 breaks
+# (10, 11, 13, 14, 15) and batch 3 is a run again
+BROKEN_AFTER_TWO = (("put", "a", 24.0), ("put", "b", 2.0), ("drop", "a", 0))
+
+
+def test_page_locked_upload_queues_the_next_batch_before_each_wait(
+        monkeypatch):
+    """A page-locked walk whose batches 0-1 are one run, batch 2 breaks
+    it and batch 3 is a run: within the run batch 1's upload is launched
+    before the wait on batch 0, every batch is marked landed after its
+    wait, a direct batch is waited for exactly once, and the staged
+    batch 2 copies into the ring only once every event recorded before
+    it has been waited for; the bytes and the report equal the
+    reference's."""
+    be, log, rep, err = _pinned_walk(monkeypatch, BROKEN_AFTER_TWO, 40.0)
+    assert err is None
+    walk = list(log.log)
+    assert be.store_for("host").objects["w"].rows == \
+        (*range(12), *range(13, 21))
+    np.testing.assert_array_equal(be.read_object("w", "gpu1"),
+                                  oracle("w", 40.0))
+    jrep = JaxBackend().execute(make_engine().compile(
+        "h2g", "t", "host", "gpu1", 40.0, data_id="w"))
+    for f in ("n_chunks", "n_batches", "stripes", "peak_staging_mb",
+              "hop_trace"):
+        assert getattr(rep, f) == getattr(jrep, f), f
+    assert [mb for mb, _ in rep.events] == [mb for mb, _ in jrep.events]
+    assert (rep.n_batches, rep.direct_batches, rep.overlapped_batches) == \
+        (4, 3, 1)
+    dst_rows = be.store_for("gpu1").objects["w"].rows
+    launch, event, k = {}, {}, None    # batch -> its launch, first event
+    for j, x in enumerate(walk):
+        if x[0] == "launch":
+            k = dst_rows.index(x[1]) // 5
+            launch[k] = j
+        elif x[0] == "record" and k is not None and k not in event:
+            event[k] = x[1]        # recorded after batch k's scatter
+    waited = {k: walk.index(("wait", i)) for k, i in event.items()}
+    lands = [j for j, x in enumerate(walk) if x[0] == "landed"]
+    assert [walk[j][1] for j in lands] == [10.0, 20.0, 30.0, 40.0]
+    assert sorted(launch) == sorted(event) == [0, 1, 2, 3]
+    assert all(waited[k] < lands[k] for k in range(4))
+    # within the run: batch 1 is launched before the wait on batch 0
+    assert launch[1] < waited[0] < lands[0] < waited[1] < lands[1]
+    # one wait a direct batch; the staged one is also waited at its
+    # boundary
+    n_waits = {k: sum(1 for x in walk[launch[k]:]
+                      if x[0] == "wait" and x[1] >= event[k]
+                      and (k == 3 or x[1] < event[k + 1]))
+               for k in range(4)}
+    assert n_waits == {0: 1, 1: 1, 2: 2, 3: 1}
+    # the staged batch: every event recorded before its ring copy has
+    # been waited for, and the run was marked landed
+    stage = walk.index(("stage",))
+    assert walk.count(("stage",)) == 1
+    before = [x[1] for x in walk[:stage] if x[0] == "record"]
+    assert before and all(("wait", i) in walk[:stage] for i in before)
+    assert lands[1] < stage < launch[2] < lands[2] < launch[3]
+
+
+@pytest.mark.parametrize("fails_at", [10.0, 20.0, 23.0])
+def test_page_locked_upload_drains_its_queue_when_the_walk_raises(
+        monkeypatch, fails_at):
+    """A progress callback that raises when batch 0 or 1 is marked
+    landed, with the next batch queued behind it, or when the last one
+    is: before the exception leaves ``execute`` the host has waited for
+    an event recorded after the last launch (so no queued upload still
+    reads the store), and the ring window is released."""
+    def boom(mb):
+        if mb == fails_at:
+            raise RuntimeError("progress callback failed")
+
+    be, log, rep, err = _pinned_walk(monkeypatch, (), 23.0,
+                                     on_progress=boom)
+    assert rep is None and "progress callback" in str(err)
+    walk = log.log
+    launches = [j for j, x in enumerate(walk) if x[0] == "launch"]
+    assert len(launches) == (2 if fails_at == 10.0 else 3)
+    last_wait = max(j for j, x in enumerate(walk) if x[0] == "wait")
+    assert walk.index(("record", walk[last_wait][1])) > launches[-1]
+    assert be.rings["host"].in_flight_mb == 0.0
