@@ -37,18 +37,20 @@ device-side steps are ordered among themselves.  The host waits (a CUDA
 event) wherever it touches bytes a copy is still moving: after every
 device-to-host copy before the host reads the window, and at every
 trigger-batch boundary, before the next batch rewrites a ring window
-that an upload reads.  Uploads that read a page-locked host store in
-place are not waited for one by one: a stretch of them is one
-``host_to_pool`` pipeline, which queues batch k+1's upload and scatter
-before it waits on batch k and returns (or raises) only once its queue
-has drained.  That is safe because nothing writes a store's rows while
-a walk reads them, so the rows hold still until the pipeline's last
-wait, and because the uploads' device temporaries are freed in stream
-order on the one stream, so none is reused before the scatter that
-reads it has run.  Progress events carry REAL landed bytes: one event
-per trigger batch whose bytes are resident at the plan destination.
-Execution is synchronous wall-clock work at submit time and never
-touches the LinkSim event stream.
+that an upload reads.  A batch uploads in place when its host rows are
+one run, and a window is written only when a batch breaks a run or the
+hop before it staged the batch.  In-place uploads are not waited for
+one by one: a stretch of them is one ``host_to_pool`` pipeline, which
+queues batch k+1's upload and scatter before it waits on batch k and
+returns (or raises) only once its queue has drained.  That is safe
+because nothing writes a store's rows while a walk reads them, so the
+rows hold still until the pipeline's last wait, and because the
+uploads' device temporaries are freed in stream order on the one
+stream, so none is reused before the scatter that reads it has run.
+Progress events carry REAL landed bytes: one event per trigger batch
+whose bytes are resident at the plan destination.  Execution is
+synchronous wall-clock work at submit time and never touches the
+LinkSim event stream.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ import os
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -286,6 +289,14 @@ class SlabStore:
         return self.pool.used_mb
 
 
+def _side(at, rows):
+    """One side of a row copy as (tensor, rows, on the device): a
+    store's rows, or all of a ring window (a host tensor)."""
+    if isinstance(at, SlabStore):
+        return at.slabs, rows, at.device
+    return at, range(len(at)), False
+
+
 class HostRing:
     """Preallocated page-locked staging ring mirroring
     CircularPinnedBuffer: ``size_mb`` of warm chunk slots per staging
@@ -295,11 +306,12 @@ class HostRing:
     ring once is the paper's §6.1 pre-pinned circular buffer, against a
     ``cudaHostAlloc`` per transfer.
 
-    The window is reserved for every staged hop, but a batch is copied
-    into it only when its source is not page-locked already: an upload
-    from a page-locked host store whose batch rows are one run reads the
-    store in place (its rows hold still until ``host_to_pool`` returns),
-    so such a window stays unwritten."""
+    The window is reserved for every staged hop, but it is written only
+    when a batch breaks a run or the hop before it staged the batch: a
+    batch whose host rows are one run uploads from the store in place
+    (its rows hold still until ``host_to_pool`` returns), so the window
+    of a plan whose one hop is an upload from such rows stays
+    unwritten."""
 
     def __init__(self, host: str, size_mb: float = 40.0,
                  chunk_mb: float = BLOCK_MB, *, pin: bool = False):
@@ -366,7 +378,7 @@ class ExecReport:
     events: list = field(default_factory=list)
     #: per-batch per-hop steps, in execution order
     hop_trace: list = field(default_factory=list)
-    #: trigger batches whose upload read the page-locked source store in
+    #: trigger batches whose upload read the source host store's rows in
     #: place, with no copy into a ring window
     direct_batches: int = 0
     #: direct batches whose upload was queued while an earlier batch of
@@ -510,13 +522,55 @@ class TorchBackend:
         for s in range(0, n, self.batch_chunks):
             yield s, min(s + self.batch_chunks, n)
 
-    def _dst_rows(self, plan: TransferPlan, obj: _Obj) -> tuple:
-        """Rows at the final destination store (fresh copy; replaces a
+    @staticmethod
+    def _fresh_rows(st: SlabStore, data_id: str, nbytes: int) -> tuple:
+        """Rows for an object landing at ``st`` (a fresh copy; replaces a
         stale same-id copy so re-fetch after update stays coherent)."""
-        dst_st = self.store_for(plan.dst)
-        if plan.data_id in dst_st:
-            dst_st.drop(plan.data_id)
-        return dst_st.alloc(plan.data_id, obj.nbytes).rows
+        if data_id in st:
+            st.drop(data_id)
+        return st.alloc(data_id, nbytes).rows
+
+    # ---------------------------------------------------------- copy step -
+    def _copy(self, src, src_rows, dst, dst_rows, *, batch: int = 0,
+              on_batch=None):
+        """Move one batch of rows, ``src_rows`` of ``src`` to ``dst_rows``
+        of ``dst``.  A side is a :class:`SlabStore` with its rows, or a
+        ring window (a host tensor) with rows ``None``: all of the
+        window, which is one run.  Where the sides live, and whether the
+        host rows are one run, choose the primitive:
+
+        * device -> device: ``gather``, then ``scatter`` (the caller puts
+          both row lists in stripe order);
+        * device -> host: ``pool_to_host`` straight into the host rows
+          when they are one run, else into one page-locked temporary
+          that is then put into them;
+        * host -> device: ``host_to_pool`` from the host rows in place
+          when they are one run, else from a copy of them; ``batch``
+          rows a pipeline batch (all of them by default) and
+          ``on_batch`` its callback;
+        * host -> host: a copy, under ``ft:backend.stage`` when it fills
+          a ring window.
+
+        Copies between the host and the device have landed when it
+        returns; a device-to-device copy is queued on the stream."""
+        (sp, sr, s_dev), (dp, dr, d_dev) = (_side(src, src_rows),
+                                            _side(dst, dst_rows))
+        if s_dev and d_dev:
+            scatter(dp, gather(sp, sr), dr)
+        elif s_dev:
+            run = _run(dr)
+            out = dp[run] if run is not None else torch.empty(
+                (len(dr), SLAB_BYTES), dtype=torch.uint8, pin_memory=self.pin)
+            pool_to_host(sp, sr, out, batch=len(dr))
+            if run is None:
+                _host_put(dp, dr, out)
+        elif d_dev:
+            host_to_pool(_host_get(sp, sr), dp, dr, batch=batch or len(dr),
+                         on_batch=on_batch)
+        else:
+            with nullcontext() if isinstance(dst, SlabStore) else \
+                    span("ft:backend.stage"):
+                _host_put(dp, dr, _host_get(sp, sr))
 
     # --------------------------------------------------- cut-through walk -
     def _cut_through(self, plan: TransferPlan, obj: _Obj, rep: ExecReport,
@@ -525,11 +579,12 @@ class TorchBackend:
         hop chain before the next enters; intermediate hosts hold only
         one ring window.
 
-        A plan that starts on a host (its one hop an h2g) uploads each
-        batch straight from the source store when the store is
-        page-locked and the batch's rows are one run
-        (``ExecReport.direct_batches``), and walks each stretch of such
-        batches as one ``host_to_pool`` pipeline
+        A batch uploads in place when its host rows are one run, and a
+        window is written only when a batch breaks a run or the hop
+        before it staged the batch.  So a plan whose one hop is an h2g
+        uploads each batch whose rows are one run straight from the
+        source store (``ExecReport.direct_batches``), and walks each
+        stretch of such batches as one ``host_to_pool`` pipeline
         (:meth:`_upload_in_place`): batch k+1's upload and scatter are
         queued before the host waits on batch k
         (``ExecReport.overlapped_batches``), and batch k is marked
@@ -537,91 +592,66 @@ class TorchBackend:
         store's rows hold still until the pipeline's last wait (nothing
         writes a store's rows while a walk reads them), and the uploads'
         device temporaries are freed in stream order on the one stream.
-        Any other batch is staged through the ring window
-        (``ft:backend.stage``) and waited for alone; it starts after the
-        stretch before it has drained, since ``host_to_pool`` returns
-        (or raises) only with nothing queued.  The window is reserved
-        either way, so the report's staging, hops and events do not
-        depend on which batches were staged or queued."""
+        A batch that breaks a run is staged through the source host's
+        window (``ft:backend.stage``) and waited for alone; it starts
+        after the stretch before it has drained, since ``host_to_pool``
+        returns (or raises) only with nothing queued.  Every other hop
+        lands the batch in the window of the host it ends on, when that
+        host has one, and in the destination store's rows when it ends
+        at the plan's destination.  The windows are reserved either way,
+        so the report's staging, hops and events do not depend on which
+        batches were staged or queued."""
         src_st = self.store_for(plan.src)
         dst_st = self.store_for(plan.dst)
-        dst_rows = self._dst_rows(plan, obj)
+        dst_rows = self._fresh_rows(dst_st, plan.data_id, obj.nbytes)
         hops = plan.hops
-        staged_hosts = []
-        for h in hops:
-            if h.staged:
-                key = h.src if h.kind == "h2g" else h.dst
-                staged_hosts.append(key)
+        # the host of each staged hop: an upload's source, else its end
+        staged = [h.src if h.kind == "h2g" else h.dst
+                  for h in hops if h.staged]
         # one trigger-batch window per staging host, held for the whole
         # transfer — CircularPinnedBuffer's window_mb reservation
         win_chunks = min(self.batch_chunks, len(obj.rows))
         wins = {hk: self.ring_for(hk).acquire(win_chunks)
-                for hk in dict.fromkeys(staged_hosts)}
+                for hk in dict.fromkeys(staged)}
         rep.peak_staging_mb = max(
             (self.rings[hk].in_flight_mb for hk in wins), default=0.0)
         batches = list(self._batches(len(obj.rows)))
-        from_host = src_st.pin and [h.kind for h in hops] == ["h2g"]
+        upload = [h.kind for h in hops] == ["h2g"]
         try:
             bi = 0
             while bi < len(batches):
                 m = self._in_place_stretch(obj.rows, batches, bi) \
-                    if from_host else 0
+                    if upload else 0
                 if m:
                     self._upload_in_place(src_st, dst_st, obj.rows, dst_rows,
                                           batches, bi, m, rep, landed)
                     bi += m
                     continue
                 s, e = batches[bi]
-                nb = e - s
-                cur = None          # host-side rows of the batch in flight
-                for hi, h in enumerate(hops):
-                    tag = f"b{bi}:{h.kind}"
+                rows, drows = obj.rows[s:e], dst_rows[s:e]
+                at = (src_st, rows)     # where the batch sits now
+                for h in hops:
                     if h.kind == "g2g":
                         # device->device within the one card, striped
                         # across the multipath set chunk-by-chunk
                         # (round-robin — same bytes, observable stripe
                         # interleave)
-                        order = self._stripe_order(nb, rep.stripes)
-                        sidx = np.asarray(obj.rows[s:e], np.int32)[order]
-                        didx = np.asarray(dst_rows[s:e], np.int32)[order]
-                        g = gather(src_st.slabs, sidx)
-                        scatter(dst_st.slabs, g, didx)
-                    elif h.kind == "g2h":
-                        win = self.ring_for(h.dst).window(wins[h.dst], nb)
-                        # waits for the copy: the window is readable
-                        pool_to_host(src_st.slabs, obj.rows[s:e], win,
-                                     batch=nb)
-                        cur = win
-                        if h.dst == plan.dst:      # plan ends on a host
-                            _host_put(dst_st.slabs, dst_rows[s:e], win)
-                    elif h.kind in ("net", "h2h"):
-                        dwin_key = hops[hi + 1].src \
-                            if hi + 1 < len(hops) else None
-                        if dwin_key is not None and dwin_key in wins:
-                            dwin = self.ring_for(dwin_key).window(
-                                wins[dwin_key], nb)
-                            with span("ft:backend.stage"):
-                                dwin.copy_(cur)
-                            cur = dwin
-                        else:       # pure h2h plan: host store rows
-                            _host_put(dst_st.slabs, dst_rows[s:e],
-                                      _host_get(src_st.slabs,
-                                                obj.rows[s:e]))
-                    elif h.kind == "h2g":
-                        if cur is None and h.src in wins:
-                            # stage the batch through the src host's
-                            # warm ring window, like pinned staging
-                            cur = self.ring_for(h.src).window(
-                                wins[h.src], nb)
-                            with span("ft:backend.stage"):
-                                cur.copy_(_host_get(src_st.slabs,
-                                                    obj.rows[s:e]))
-                        elif cur is None:      # plan starts on a host
-                            cur = _host_get(src_st.slabs, obj.rows[s:e])
-                        # waits for the upload: the window is reusable
-                        host_to_pool(cur, dst_st.slabs, dst_rows[s:e],
-                                     batch=nb)
-                    rep.hop_trace.append(tag)
+                        order = self._stripe_order(e - s, rep.stripes)
+                        self._copy(src_st, np.asarray(rows, np.int32)[order],
+                                   dst_st, np.asarray(drows, np.int32)[order])
+                    else:
+                        # the window this hop lands the batch in: the
+                        # one at its end, or, for an upload of a batch
+                        # still in the source rows, the source host's
+                        hk = h.src if h.kind == "h2g" and at[0] is src_st \
+                            else h.dst
+                        if hk in wins:
+                            win = self.rings[hk].window(wins[hk], e - s)
+                            self._copy(*at, win, None)
+                            at = (win, None)
+                        if h.dst == plan.dst:
+                            self._copy(*at, dst_st, drows)
+                    rep.hop_trace.append(f"b{bi}:{h.kind}")
                 # boundary sync: the batch is REALLY at the destination
                 if dst_st.device:
                     wait(record(dst_st.slabs))
@@ -647,12 +677,12 @@ class TorchBackend:
 
     def _upload_in_place(self, src_st, dst_st, rows, dst_rows, batches,
                          b0: int, m: int, rep: ExecReport, landed):
-        """Upload batches ``b0 .. b0 + m - 1``, one run of page-locked
-        host rows, straight from the store as one ``host_to_pool``
-        pipeline, and mark each landed when its wait returns: its
-        ``h2g`` tag, then its ``landed`` event, as the per-batch walk
-        does.  The event after a batch's scatter already means its bytes
-        are on the card, so no second wait."""
+        """Upload batches ``b0 .. b0 + m - 1``, one run of host rows,
+        straight from the store as one ``host_to_pool`` pipeline, and
+        mark each landed when its wait returns: its ``h2g`` tag, then
+        its ``landed`` event, as the per-batch walk does.  The event
+        after a batch's scatter already means its bytes are on the card,
+        so no second wait."""
         s0, e0 = batches[b0][0], batches[b0 + m - 1][1]
         k = iter(range(b0, b0 + m))
 
@@ -663,11 +693,8 @@ class TorchBackend:
 
         rep.direct_batches += m
         rep.overlapped_batches += m - 1
-        r0 = rows[s0]
-        host_to_pool(src_st.slabs[r0:r0 + e0 - s0], dst_st.slabs,
-                     dst_rows[s0:e0],
-                     batch=batches[b0][1] - batches[b0][0],
-                     on_batch=on_batch)
+        self._copy(src_st, rows[s0:e0], dst_st, dst_rows[s0:e0],
+                   batch=batches[b0][1] - batches[b0][0], on_batch=on_batch)
 
     def _stripe_order(self, n: int, stripes: int) -> np.ndarray:
         if stripes <= 1:
@@ -690,35 +717,11 @@ class TorchBackend:
                 (h.dst if not is_device(h.dst) else host_of(h.dst))
             src_st = self.store_for(cur_ep)
             dst_st = self.store_for(dst_ep)
-            if final:
-                nxt_rows = self._dst_rows(plan, obj)
-            else:
-                if plan.data_id in dst_st:
-                    dst_st.drop(plan.data_id)
-                nxt_rows = dst_st.alloc(plan.data_id, obj.nbytes).rows
+            nxt_rows = self._fresh_rows(dst_st, plan.data_id, obj.nbytes)
+            if not final:
                 inter.append(dst_ep)
             for bi, (s, e) in enumerate(self._batches(n)):
-                if src_st.device and dst_st.device:
-                    g = gather(src_st.slabs, cur_rows[s:e])
-                    scatter(dst_st.slabs, g, nxt_rows[s:e])
-                elif src_st.device:
-                    # land straight in the host store when the rows are
-                    # one run, else through page-locked staging
-                    run = _run(nxt_rows[s:e])
-                    out = dst_st.slabs[run] if run is not None else \
-                        torch.empty((e - s, SLAB_BYTES), dtype=torch.uint8,
-                                    pin_memory=self.pin)
-                    pool_to_host(src_st.slabs, cur_rows[s:e], out,
-                                 batch=self.batch_chunks)
-                    if run is None:
-                        _host_put(dst_st.slabs, nxt_rows[s:e], out)
-                elif dst_st.device:
-                    host_to_pool(_host_get(src_st.slabs, cur_rows[s:e]),
-                                 dst_st.slabs, nxt_rows[s:e],
-                                 batch=self.batch_chunks)
-                else:
-                    _host_put(dst_st.slabs, nxt_rows[s:e],
-                              _host_get(src_st.slabs, cur_rows[s:e]))
+                self._copy(src_st, cur_rows[s:e], dst_st, nxt_rows[s:e])
                 if final:
                     if dst_st.device:
                         wait(record(dst_st.slabs))

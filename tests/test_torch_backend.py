@@ -249,38 +249,40 @@ def test_load_reference_state_refuses_fragmented_pool():
         load_reference_state(cpu_backend(), _snapshot(jb))
 
 
-# ---------------------------------- uploads from a page-locked host store -
+# ------------------------------------------ uploads from a host store -
 
 DIRECT_MB = 23.0        # 12 chunks, ragged 1 MB tail, 3 trigger batches
 
 
-def _host_backend(monkeypatch, host: str, pinned: bool, size_mb: float):
-    """A CPU backend whose ``host`` store is reserved at full size, then,
-    when ``pinned``, flagged page-locked as a CUDA backend's is (reserved
-    first, so no growth asks for page-locked pages on the CPU)."""
+def _host_backend(host: str, size_mb: float):
+    """A CPU backend whose ``host`` store is reserved at full size."""
     be = cpu_backend()
     be.reserve(host, size_mb)
-    if pinned:
-        monkeypatch.setattr(be.store_for(host), "pin", True)
     return be
 
 
-@pytest.mark.parametrize("pinned", [True, False], ids=["pinned", "unpinned"])
+def _hole(be, host: str):
+    """Objects at rows 0-1, 2-3 and 4 of ``host``, the middle one
+    dropped: the next object's rows break after its first two."""
+    for did, mb in (("fa", 4.0), ("fb", 4.0), ("fc", 2.0)):
+        be.put_object(did, host, size_mb=mb)
+    be.drop_object("fb", host)
+
+
 @pytest.mark.parametrize("case", ["h2g", "reload"])
-def test_page_locked_host_uploads_in_place(monkeypatch, case, pinned):
-    """A cut-through plan from a page-locked host store uploads every
-    batch from the store's own rows: no byte lands in the ring, and the
-    report (chunks, batches, stripes, the reserved window, hops,
-    progress) equals the JAX reference's for the same plan, and every
-    batch after the first is queued before the one ahead of it is
-    confirmed.  An unpinned store stages every batch as before, one at a
-    time."""
+def test_page_locked_host_uploads_in_place(case):
+    """A cut-through plan from a host store whose rows are one run
+    uploads every batch from the store's own rows, on the CPU as on the
+    card: no byte lands in the ring, the report (chunks, batches,
+    stripes, the reserved window, hops, progress) equals the JAX
+    reference's for the same plan, and every batch after the first is
+    queued before the one ahead of it is confirmed."""
     topo_fn, kind, src, dst, kw = MATRIX[case]
     did = f"direct-{case}"
     jrep = JaxBackend().execute(
         make_engine(topo_fn, staging=CUT_THROUGH, **kw).compile(
             kind, "t", src, dst, DIRECT_MB, data_id=did))
-    tb = _host_backend(monkeypatch, src, pinned, DIRECT_MB)
+    tb = _host_backend(src, DIRECT_MB)
     _, trep = run_plan(port_engine(PORT_TOPO[case], staging=CUT_THROUGH,
                                    **kw),
                        tb, kind, src, dst, DIRECT_MB, did)
@@ -291,26 +293,23 @@ def test_page_locked_host_uploads_in_place(monkeypatch, case, pinned):
         assert getattr(trep, f) == getattr(jrep, f), f
     assert [mb for mb, _ in trep.events] == [mb for mb, _ in jrep.events]
     assert trep.n_batches == 3
-    assert trep.direct_batches == (trep.n_batches if pinned else 0)
-    assert trep.overlapped_batches == (trep.n_batches - 1 if pinned else 0)
+    assert trep.direct_batches == trep.n_batches
+    assert trep.overlapped_batches == trep.n_batches - 1
     ring = tb.rings[src]
     assert ring.peak_mb == trep.peak_staging_mb > 0
     assert ring.in_flight_mb == 0.0
-    assert bool(ring.buf.any()) is not pinned
+    assert not ring.buf.any()
 
 
-def test_fragmented_page_locked_object_stages_only_broken_batches(
-        monkeypatch):
-    """A page-locked host object whose rows break once (it fills a hole
-    left by a dropped object): the batch across the break is staged
-    through the ring, the two run batches upload in place as one
-    pipeline (the second queued behind the first: one overlapped batch;
-    the staged batch 0 has nothing queued ahead of it), and the bytes
-    and the report still equal the reference's."""
-    be = _host_backend(monkeypatch, "host", True, 64.0)
-    for did, mb in (("fa", 4.0), ("fb", 4.0), ("fc", 2.0)):
-        be.put_object(did, "host", size_mb=mb)
-    be.drop_object("fb", "host")
+def test_fragmented_page_locked_object_stages_only_broken_batches():
+    """A host object whose rows break once (it fills a hole left by a
+    dropped object): the batch across the break is staged through the
+    ring, the two run batches upload in place as one pipeline (the
+    second queued behind the first: one overlapped batch; the staged
+    batch 0 has nothing queued ahead of it), and the bytes and the
+    report still equal the reference's."""
+    be = _host_backend("host", 64.0)
+    _hole(be, "host")
     be.put_object("fe", "host", size_mb=30.0)
     assert be.store_for("host").objects["fe"].rows == \
         (2, 3, *range(5, 18))
@@ -328,15 +327,70 @@ def test_fragmented_page_locked_object_stages_only_broken_batches(
     assert be.rings["host"].buf.any()        # the broken batch was staged
 
 
-# ------------------------------- the queue of a page-locked upload's batches -
+# ------------------------------------------- plans through broken host rows -
+
+#: case -> (staging, the hosts given a hole): a 30 MB object (15 chunks,
+#: 3 trigger batches) that lands at such a host takes rows 2, 3, 5-17,
+#: so its batch 0 breaks a run and batches 1-2 do not
+BROKEN_ROWS = {
+    "spill": (CUT_THROUGH, ("host",)),
+    "h2h": (CUT_THROUGH, ("n0:host", "n1:host")),
+    "g2g_host": (STORE_FORWARD, ("host",)),
+    "internode": (STORE_FORWARD, ("n0:host", "n1:host")),
+}
+BROKEN_MB = 30.0
+
+
+@pytest.mark.parametrize("case", sorted(BROKEN_ROWS))
+def test_plan_through_broken_host_rows_matches_jax_backend(case):
+    """A plan that lands in, or reads from, host rows that break a run,
+    on both walks: cut-through lands a spill's window in broken rows and
+    copies an h2h between broken rows; store-and-forward lands its
+    intermediate copy in broken rows (through a temporary), copies an
+    internode net hop between broken rows and uploads from them.  The
+    bytes are the oracle's, the neighbours of the hole keep theirs, and
+    the report and where the object ends up equal the JAX reference's
+    under the same layout."""
+    staging, hosts = BROKEN_ROWS[case]
+    topo_fn, kind, src, dst, kw = MATRIX[case]
+    did = f"broken-{case}"
+    jb, tb = JaxBackend(), cpu_backend()
+    for be in (jb, tb):
+        for h in hosts:
+            _hole(be, h)
+    probe = tb.store_for(hosts[0])
+    assert probe.alloc("probe", nbytes_of(BROKEN_MB)).rows[:3] == (2, 3, 5)
+    probe.drop("probe")
+    jrep = jb.execute(make_engine(topo_fn, staging=staging, **kw).compile(
+        kind, "t", src, dst, BROKEN_MB, data_id=did))
+    _, trep = run_plan(port_engine(PORT_TOPO[case], staging=staging, **kw),
+                       tb, kind, src, dst, BROKEN_MB, did)
+    for f in ("n_chunks", "n_batches", "stripes", "peak_staging_mb",
+              "hop_trace"):
+        assert getattr(trep, f) == getattr(jrep, f), f
+    assert [mb for mb, _ in trep.events] == [mb for mb, _ in jrep.events]
+    assert trep.n_batches == 3
+    for ep in (dst, src):
+        np.testing.assert_array_equal(tb.read_object(did, ep),
+                                      oracle(did, BROKEN_MB))
+    for h in hosts:
+        for nb, mb in (("fa", 4.0), ("fc", 2.0)):
+            np.testing.assert_array_equal(tb.read_object(nb, h),
+                                          oracle(nb, mb))
+    assert tb.where(did) == jb.where(did)
+    assert all(r.in_flight_mb == 0.0 for r in tb.rings.values())
+
+
+# ------------------------------------- the queue of an upload's batches -
 
 class _WalkLog:
     """What a CPU walk launches and waits for, in order, with stand-in
     events (the CPU records none): ``("launch", dst_row)`` for a batch's
     upload and its scatter (the scatter reads the upload, so it is
     launched after it), ``("record", i)`` and ``("wait", i)`` for event
-    ``i``, ``("stage",)`` for a batch's copy into the ring window and
-    ``("landed", mb)`` for each progress event."""
+    ``i``, ``("stage",)`` for a batch's copy into the ring window (its
+    ``ft:backend.stage`` range) and ``("landed", mb)`` for each progress
+    event."""
 
     def __init__(self, monkeypatch):
         from types import SimpleNamespace
@@ -344,7 +398,7 @@ class _WalkLog:
         from repro_torch.core import backend_torch
         from repro_torch.kernels.chunked_copy import pipeline
         self.log = []
-        scatter, host_get = pipeline.scatter, backend_torch._host_get
+        scatter, span = pipeline.scatter, backend_torch.span
 
         def record(t):
             i = sum(1 for x in self.log if x[0] == "record")
@@ -356,26 +410,27 @@ class _WalkLog:
             self.log.append(("launch", int(np.asarray(idx)[0])))
             return scatter(dst, src, idx)
 
-        def stage(pool, rows):
-            self.log.append(("stage",))
-            return host_get(pool, rows)
+        def stage(name):
+            if name == "ft:backend.stage":
+                self.log.append(("stage",))
+            return span(name)
 
         for mod in (backend_torch, pipeline):
             monkeypatch.setattr(mod, "record", record)
         monkeypatch.setattr(pipeline, "scatter", launch)
-        monkeypatch.setattr(backend_torch, "_host_get", stage)
+        monkeypatch.setattr(backend_torch, "span", stage)
 
     def landed(self, mb):
         self.log.append(("landed", mb))
 
 
-def _pinned_walk(monkeypatch, layout, size_mb, did="w", on_progress=None):
-    """A CPU backend whose host store is flagged page-locked, holding
-    ``layout``'s objects (``("put" | "drop", id, mb)`` in order), then
-    ``did``'s ``size_mb``; one cut-through host -> gpu1 walk of ``did``
-    under a :class:`_WalkLog`.  Returns the backend, the log, the
-    report (None if the walk raised) and the exception it raised."""
-    be = _host_backend(monkeypatch, "host", True, 64.0)
+def _host_walk(monkeypatch, layout, size_mb, did="w", on_progress=None):
+    """A CPU backend whose host store holds ``layout``'s objects
+    (``("put" | "drop", id, mb)`` in order), then ``did``'s ``size_mb``;
+    one cut-through host -> gpu1 walk of ``did`` under a
+    :class:`_WalkLog`.  Returns the backend, the log, the report (None
+    if the walk raised) and the exception it raised."""
+    be = _host_backend("host", 64.0)
     for op, oid, mb in layout:
         if op == "put":
             be.put_object(oid, "host", size_mb=mb)
@@ -404,14 +459,14 @@ BROKEN_AFTER_TWO = (("put", "a", 24.0), ("put", "b", 2.0), ("drop", "a", 0))
 
 def test_page_locked_upload_queues_the_next_batch_before_each_wait(
         monkeypatch):
-    """A page-locked walk whose batches 0-1 are one run, batch 2 breaks
+    """A host walk whose batches 0-1 are one run, batch 2 breaks
     it and batch 3 is a run: within the run batch 1's upload is launched
     before the wait on batch 0, every batch is marked landed after its
     wait, a direct batch is waited for exactly once, and the staged
     batch 2 copies into the ring only once every event recorded before
     it has been waited for; the bytes and the report equal the
     reference's."""
-    be, log, rep, err = _pinned_walk(monkeypatch, BROKEN_AFTER_TWO, 40.0)
+    be, log, rep, err = _host_walk(monkeypatch, BROKEN_AFTER_TWO, 40.0)
     assert err is None
     walk = list(log.log)
     assert be.store_for("host").objects["w"].rows == \
@@ -469,7 +524,7 @@ def test_page_locked_upload_drains_its_queue_when_the_walk_raises(
         if mb == fails_at:
             raise RuntimeError("progress callback failed")
 
-    be, log, rep, err = _pinned_walk(monkeypatch, (), 23.0,
+    be, log, rep, err = _host_walk(monkeypatch, (), 23.0,
                                      on_progress=boom)
     assert rep is None and "progress callback" in str(err)
     walk = log.log

@@ -196,11 +196,12 @@ def test_page_locked_upload_reads_the_host_store_in_place(cuda_device,
     page-locked and one run, so every trigger batch's DMA reads it in
     place (``direct_batches == n_batches``), the ring window stays
     unwritten, every batch still lands through the scatter kernel, the
-    bytes are the oracle's, and the report's staging, hops and progress
-    equal the CPU backend's (which stages every batch).  Under the
-    profiler (in a process of its own: the card's tracer records device
-    work in the first profiler session of a process only) the trace
-    holds page-locked uploads and no ``ft:backend.stage`` range."""
+    bytes are the oracle's, and the report's in-place batches, staging,
+    hops and progress equal the CPU backend's, which walks the same
+    path.  Under the profiler (in a process of its own: the card's
+    tracer records device work in the first profiler session of a
+    process only) the trace holds page-locked uploads and no
+    ``ft:backend.stage`` range."""
     import json
     import os
     import subprocess
@@ -219,8 +220,8 @@ def test_page_locked_upload_reads_the_host_store_in_place(cuda_device,
     rep = card["report"]
     assert card["same"] and card["pinned"] and not card["ring_written"]
     assert rep["n_batches"] == cpu.n_batches == 13
-    assert rep["direct_batches"] == rep["n_batches"] and \
-        cpu.direct_batches == 0
+    assert rep["direct_batches"] == rep["n_batches"] == \
+        cpu.direct_batches
     assert card["scatters"] == rep["n_batches"]
     assert rep["peak_staging_mb"] == cpu.peak_staging_mb
     assert rep["hop_trace"] == cpu.hop_trace

@@ -80,9 +80,11 @@ def test_moe_prefill_marks_each_layer_and_leaves_its_outputs(tmp_path):
 
 def test_host_to_device_walk_stages_once_a_trigger_batch(tmp_path):
     """``TorchBackend(device="cpu")`` moving 23 MB host -> gpu1 cut
-    through (12 chunks, 3 trigger batches): one ``ft:backend.execute``
-    holding one ``ft:backend.stage`` a batch; the report's hops and
-    progress as with no profiler."""
+    through (12 chunks, 3 trigger batches) from host rows that break a
+    run in every batch (the object fills the one-row holes left by every
+    other of 24 dropped objects): one ``ft:backend.execute`` holding one
+    ``ft:backend.stage`` a batch; no batch uploads in place; the bytes,
+    and the report's hops and progress, as with no profiler."""
     reps = []
     for traced in (False, True):
         topo = ttopo.dgx_v100()
@@ -90,6 +92,13 @@ def test_host_to_device_walk_stages_once_a_trigger_batch(tmp_path):
                              CircularPinnedBuffer(), topo,
                              staging=CUT_THROUGH)
         be = TorchBackend(device="cpu")
+        for i in range(24):
+            be.put_object(f"p{i}", "host", size_mb=2.0)
+        for i in range(0, 24, 2):
+            be.drop_object(f"p{i}", "host")
+        be.put_object("w", "host", size_mb=23.0)
+        rows = be.store_for("host").objects["w"].rows
+        assert all(b != a + 1 for a, b in zip(rows, rows[1:])), rows
         plan = eng.compile("h2g", "t", "host", "gpu1", 23.0, data_id="w")
         if traced:
             with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -105,6 +114,7 @@ def test_host_to_device_walk_stages_once_a_trigger_batch(tmp_path):
     stages = [r for r in got if r[0] == "ft:backend.stage"]
     assert len(walks) == 1 and rep.n_batches == 3
     assert len(stages) == rep.n_batches
+    assert rep.direct_batches == 0
     (_, w0, w1), = walks
     assert all(w0 <= a and b <= w1 for _, a, b in stages)
     assert rep.hop_trace == plain.hop_trace
@@ -112,10 +122,10 @@ def test_host_to_device_walk_stages_once_a_trigger_batch(tmp_path):
 
 
 def test_page_locked_host_walk_stages_nothing(tmp_path, monkeypatch):
-    """The same 23 MB walk from a host store flagged page-locked (as a
-    CUDA backend's is): every batch uploads from the store in place, so
-    the one ``ft:backend.execute`` holds no ``ft:backend.stage``, and
-    still holds its blocking waits (``ft:copy.wait``, here on a stand-in
+    """A 23 MB walk from host rows that are one run: every batch
+    uploads from the store in place, as on the card, so the one
+    ``ft:backend.execute`` holds no ``ft:backend.stage``, and still
+    holds its blocking waits (``ft:copy.wait``, here on a stand-in
     event, since the CPU records none) at least one a trigger batch."""
     from types import SimpleNamespace
 
@@ -128,8 +138,6 @@ def test_page_locked_host_walk_stages_nothing(tmp_path, monkeypatch):
     eng = TransferEngine(LinkSim(topo), PathFinder(topo),
                          CircularPinnedBuffer(), topo, staging=CUT_THROUGH)
     be = TorchBackend(device="cpu")
-    be.reserve("host", 23.0)
-    monkeypatch.setattr(be.store_for("host"), "pin", True)
     plan = eng.compile("h2g", "t", "host", "gpu1", 23.0, data_id="w")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         rep = be.execute(plan)
