@@ -10,11 +10,11 @@ CUDA kernels from the checkout's sources, and runs seventeen phases:
    and ``synth_payload`` against numpy's own uint8 draw;
 2. build: one ``nvcc`` for sm_90a per source, all started together;
    the compiler's register and spill report, and each flash, flash
-   backward and paged instance's registers, local (spill) bytes, shared
-   memory and resident blocks per SM as the card reports them, and the
-   resident blocks the paged split plan fills; the bf16 D=64 flash
-   instance and every bf16 flash backward and paged instance must not
-   spill;
+   backward, paged and decode instance's registers, local (spill)
+   bytes, shared memory and resident blocks per SM as the card reports
+   them, and the resident blocks the paged split plan fills; the bf16
+   D=64 flash instance and every bf16 flash backward, paged and decode
+   instance must not spill;
 3. the chunked-copy kernels against their plain versions on the card,
    byte for byte, and their times at the main path's shapes beside their
    bound;
@@ -28,13 +28,17 @@ CUDA kernels from the checkout's sources, and runs seventeen phases:
    MiniCPM-2B's shapes and at odd ones (flash: not causal over Whisper's
    1500 frames, 4 queries over them, group 6 at Qwen2-VL-2B's heads;
    paged: many spans, a length on a span boundary, group 8 at D=128,
-   pages of 8; flash also at every shape phase 12 launches and at phases
+   pages of 8; decode: the decode cell's and DBRX's heads over a
+   4096-position cache, groups of 5 and 20, a window; flash also at
+   every shape phase 12 launches and at phases
    13's and 15's training shapes, derived from the models' configs), and their
    times beside their bound, their plain
    versions' and the library call's (flash and paged also at Qwen2-72B's
    heads, GQA at D=128, flash also at Whisper-medium's encoder and
    Qwen2-VL-2B's prefill; paged also beside SDPA over the same K/V as a
-   contiguous cache, a yardstick without the gather); the flash
+   contiguous cache, a yardstick without the gather; decode at the
+   decode cell's shape at positions 1024 and 4095 and at DBRX's heads,
+   each pass timed alone too); the flash
    backward (its forward's statistics, then dq, dk, dv) against its
    plain version at odd cases and at 13's and 15's training shapes, f32
    and bf16, timed at those two shapes beside its bound, its plain
@@ -47,9 +51,11 @@ CUDA kernels from the checkout's sources, and runs seventeen phases:
    (Whisper's encoder output too), and one flash launch per attention
    layer in each prefill;
 9. the serving path at full width: ``Engine(minicpm-2b)`` in bf16 on the
-   card, 8 requests of 1024 prompt tokens, 32 new tokens each; then the
-   paged kernel over layer 0's KV cache cut into shuffled 128-token
-   pages, against the engine's decode attention on the contiguous cache;
+   card, 8 requests of 1024 prompt tokens, 32 new tokens each, each
+   decode step launching each decode attention kernel once a layer;
+   then the paged kernel over layer 0's KV cache cut into shuffled
+   128-token pages, against the engine's decode attention on the
+   contiguous cache;
 10. chaos with real bytes: a ``WorkflowEngine`` running DRIVING and
     TRAFFIC at the paper's object sizes on ``cluster(2)`` with a
     ``TorchBackend`` on the card, under a seeded ``FaultSchedule`` of
@@ -581,6 +587,21 @@ PAGED_CASES = [(8, 36, 1, 64, 128, 8, 48),
                (4, 2, 2, 64, 128, 32, 40),
                (3, 2, 8, 128, 128, 16, 20),
                (3, 2, 2, 64, 8, 40, 50)]
+# (B, Hkv, group, D, S, pos, window): the decode cell's shape (32
+# sessions, MiniCPM-2B's 36/36 heads of 64, a 4096-position cache) at its
+# first decode position and at the cache's end, DBRX-132B's 48/8 heads of
+# 128, the reduced configs' D=16, groups of 5 and 20 (idle head rows,
+# three head groups), a live range off the 64-position tile, a window
+DECODE_CASES = [(32, 36, 1, 64, 4096, 1024, 0), (32, 36, 1, 64, 4096, 4095, 0),
+                (8, 8, 6, 128, 4096, 4095, 0), (3, 4, 1, 16, 100, 99, 0),
+                (2, 2, 5, 32, 300, 150, 0), (2, 1, 20, 128, 257, 256, 0),
+                (2, 4, 2, 64, 1000, 700, 129)]
+#: decode attention timed in phase 7, bf16: (B, Hkv, group, D, S, pos):
+#: the decode cell's shape at the window's first position and at the
+#: cache's end, and DBRX-132B's heads at the cache's end
+DECODE_TIMED = {"": (32, 36, 1, 64, 4096, 1024),
+                "pos4095": (32, 36, 1, 64, 4096, 4095),
+                "dbrx-132b": (8, 8, 6, 128, 4096, 4095)}
 #: Qwen2-72B's heads (64 query, 8 kv heads of 128) decoding over a
 #: 4096-token cache in 32 shuffled pages of 128, batch 8: timed in phase
 #: 7, not a model path
@@ -721,13 +742,17 @@ def mesh_serve_flash_cases() -> list:
 
 
 def attention_cases() -> dict:
-    """Both attention kernels against their plain versions at every case
+    """The attention kernels against their plain versions at every case
     (FLASH_CASES, ``model_flash_cases()``, ``train_flash_cases()``,
-    ``moe_flash_cases()`` and ``mesh_serve_flash_cases()`` for flash),
-    f32 and bf16.  Returns the largest absolute difference per kernel and
-    dtype, and the paged kernel's largest row-relative one in bf16 under
-    ("paged_attention", "bfloat16 row-relative")."""
+    ``moe_flash_cases()`` and ``mesh_serve_flash_cases()`` for flash;
+    DECODE_CASES for decode attention, against the plain version over the
+    whole padded cache), f32 and bf16.  Returns the largest absolute
+    difference per kernel and dtype, and the paged and decode kernels'
+    largest row-relative one in bf16 under (name, "bfloat16
+    row-relative")."""
     import torch
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.paged_attention import kernel as PK
@@ -780,6 +805,23 @@ def attention_cases() -> dict:
             worst[key] = max(worst.get(key, 0.0), _abs_err(got, want))
             if dt == torch.bfloat16:
                 key = ("paged_attention", "bfloat16 row-relative")
+                worst[key] = max(worst.get(key, 0.0),
+                                 _row_rel_err(got, want))
+        for case in DECODE_CASES:
+            B, Hkv, G, D, S, pos, window = case
+            q = _rand((B, Hkv * G, 1, D), dt, gen)
+            k = _rand((B, Hkv, S, D), dt, gen)
+            v = _rand((B, Hkv, S, D), dt, gen)
+            got = decode_ops.attention(q, k, v, pos, window=window)
+            want = decode_attention_ref(q, k, v, pos, window=window)
+            torch.cuda.synchronize()
+            check(_paged_agree(got, want),
+                  f"decode_attention != plain at {case + (name,)}: "
+                  f"{_paged_errs(got, want)}")
+            key = ("decode_attention", name)
+            worst[key] = max(worst.get(key, 0.0), _abs_err(got, want))
+            if dt == torch.bfloat16:
+                key = ("decode_attention", "bfloat16 row-relative")
                 worst[key] = max(worst.get(key, 0.0),
                                  _row_rel_err(got, want))
     return worst
@@ -1050,12 +1092,65 @@ def paged_times(B, Hq, Hkv, D, page, NP, gen) -> dict:
                  f"tokens, seq_len {L}, bf16"}
 
 
+def decode_times(B, Hkv, G, D, S, pos, gen) -> dict:
+    """Decode attention at one bf16 shape over positions ``[0, pos]`` of an
+    S-position cache: the call (both kernels and the softmax between
+    them), each pass alone, the plain version over the whole padded cache
+    it replaced, and SDPA over the live positions (``library_ms``, a
+    yardstick only: the port never calls it), with the bytes and flops
+    the function needs (every live K and V byte read once)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    bf = torch.bfloat16
+    Hq, n = Hkv * G, pos + 1
+    q = _rand((B, Hq, 1, D), bf, gen)
+    k, v = (_rand((B, Hkv, S, D), bf, gen) for _ in range(2))
+    got = decode_ops.attention(q, k, v, pos)
+    sdpa = F.scaled_dot_product_attention(q, k[:, :, :n], v[:, :, :n],
+                                          enable_gqa=Hq != Hkv)
+    torch.cuda.synchronize()
+    check(_paged_agree(got, sdpa),
+          f"decode_attention != SDPA over the live positions at "
+          f"{(B, Hkv, G, D, S, pos)}: {_paged_errs(got, sdpa)}")
+    scores = DK.decode_scores(q, k, 0, pos)
+    p = torch.softmax(scores, dim=-1)
+    slots = {kern: DK.resident_slots(kern, D, DK.group_block(G),
+                                     q.device.index) for kern in DK.KERNELS}
+    kern = lambda: decode_ops.attention(q, k, v, pos)  # noqa: E731
+    heads = f"Hq=Hkv={Hq}" if Hq == Hkv else f"Hq={Hq} Hkv={Hkv}"
+    return {
+        "ms": device_ms([kern] * 4),
+        "call_ms": call_ms([kern] * 8),
+        "passes_ms": {
+            "decode_scores": device_ms([lambda: DK.decode_scores(
+                q, k, 0, pos)] * 4),
+            "softmax": device_ms([lambda: torch.softmax(scores, -1)] * 4),
+            "decode_values": device_ms([lambda: DK.decode_values(
+                p, v, 0, bf)] * 4)},
+        "plain_ms": device_ms([lambda: decode_attention_ref(q, k, v, pos)]),
+        "library_ms": device_ms([lambda: F.scaled_dot_product_attention(
+            q, k[:, :, :n], v[:, :, :n], enable_gqa=Hq != Hkv)] * 4),
+        "split_plan": {kn: DK.split_plan(B * Hkv * -(-G // DK.group_block(G)),
+                                         n, D, 2, slots[kn])
+                       for kn in DK.KERNELS},
+        "sdpa_row_rel_err": _row_rel_err(got, sdpa),
+        "bytes": (2 * B * Hkv * n * D + 2 * B * Hq * D) * 2,
+        "flops": 4 * B * Hq * D * n,
+        "shape": f"B={B} {heads} D={D}, positions 0..{pos} of a {S}-position "
+                 f"cache, bf16"}
+
+
 def attention_times() -> dict:
     """Device times in bf16 (CUDA graph replay, CUDA events) at
     MiniCPM-2B's prefill and decode shapes, at Qwen2-72B's heads and
     (flash) at FLASH_MODEL_SHAPES, phases 13's and 15's training shapes
     and phase 16's prefills other than MiniCPM-2B's, beside the bound, the plain version and the library call
-    (SDPA for flash; paged attention has no single PyTorch call); the
+    (SDPA for flash and, over the live positions, for decode attention;
+    paged attention has no single PyTorch call); decode attention at
+    DECODE_TIMED's shapes; the
     flash backward at phases 13's and 15's training shapes
     (``flash_bwd_times``, each kernel's time from ``bwd_profile_child``)."""
     import torch
@@ -1082,6 +1177,8 @@ def attention_times() -> dict:
            "paged_attention": paged_times(B, H, H, D, 128, L // 128, gen),
            "paged_attention/qwen2-72b": paged_times(
                B_q, Hq_q, Hkv_q, D_q, page_q, NP_q, gen),
+           **{"decode_attention" + (f"/{k}" if k else ""): decode_times(
+               *shape, gen) for k, shape in DECODE_TIMED.items()},
            "flash_attention_bwd": flash_bwd_times(
                B_t, Hq_t, Hkv_t, L_t, D_t, gen, causal=c_t),
            f"flash_attention_bwd/{MOE_ARCH}-train": flash_bwd_times(
@@ -1262,7 +1359,8 @@ def full_width(say) -> dict:
     lens = torch.full((B,), L, dtype=torch.int32, device="cuda")
     q = _rand((B, cfg.n_heads, D), torch.bfloat16, gen)
     got = paged_ops.attention(q, kp, vp, table, lens)
-    want = decode_attention(q[:, :, None], k0, v0, L - 1)[:, :, 0]
+    want = decode_attention(q[:, :, None], k0.contiguous(), v0.contiguous(),
+                            L - 1)[:, :, 0]
     torch.cuda.synchronize()
     paged_err = _abs_err(got, want)
     check(_paged_agree(got, want),
@@ -3436,6 +3534,7 @@ def main() -> int:
         TorchBackend, nbytes_of, synth_payload)
     from repro_torch.kernels import _build
     from repro_torch.kernels.chunked_copy import kernel as K
+    from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.paged_attention import kernel as PK
 
@@ -3453,7 +3552,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build_all([K.SOURCE, FK.SOURCE, FK.BWD_SOURCE,
-                              PK.SOURCE])
+                              PK.SOURCE, DK.SOURCE])
     say(f"[2] nvcc for sm_90a, {len(built)} sources in parallel: "
         f"{time.perf_counter() - t0:.2f} s wall")
     for src, secs in built.items():
@@ -3461,7 +3560,7 @@ def main() -> int:
         regs = [ln.strip() for ln in lib.with_suffix(".log").read_text()
                 .splitlines() if "registers" in ln or "spill" in ln]
         say(f"  {lib.relative_to(ROOT)}: {secs:.2f} s; {regs}")
-    for mod in (K, FK, PK):
+    for mod in (K, FK, PK, DK):
         mod.load_library()
     FK.load_bwd_library()
     for dt in (torch.bfloat16, torch.float32):
@@ -3486,6 +3585,18 @@ def main() -> int:
             if dt == torch.bfloat16:
                 check(inst["local_bytes"] == 0,
                       f"the bf16 D={D} paged kernel spills: {inst}")
+    for dt in (torch.bfloat16, torch.float32):
+        for D in DK.HEAD_DIMS:
+            for gb in (1, 2, 4, 8):
+                for kern in DK.KERNELS:
+                    inst = DK.describe(kern, D, dt, gb)
+                    if gb in (1, 8):
+                        say(f"  {kern} {str(dt).removeprefix('torch.')} "
+                            f"D={D} GB={gb}: {inst}")
+                    if dt == torch.bfloat16:
+                        check(inst["local_bytes"] == 0,
+                              f"the bf16 D={D} GB={gb} {kern} spills: "
+                              f"{inst}")
     say(f"  paged split plan: resident blocks by head dim "
         f"{ {D: PK.resident_slots(D, 0) for D in PK.HEAD_DIMS} } "
         f"(bf16 blocks an SM x "
@@ -3596,6 +3707,11 @@ def main() -> int:
             f" of the bound), SDPA on a contiguous cache "
             f"{r['contiguous_sdpa_ms']:.5f} ms (outputs differ by "
             f"{r['sdpa_row_rel_err']:.3g} row-relative)")
+        if "passes_ms" in r:
+            extra = (f"; split_plan {r['split_plan']}, each pass "
+                     f"{r['passes_ms']}, eager call {r['call_ms']:.5f} ms, "
+                     f"outputs differ from SDPA's by "
+                     f"{r['sdpa_row_rel_err']:.3g} row-relative")
         if "attention_bwd_ref_ms" in r:
             extra = (f"; attention_bwd_ref (the training path's backward "
                      f"before the kernel) {r['attention_bwd_ref_ms']:.5f} ms"
@@ -3618,9 +3734,11 @@ def main() -> int:
     say("[9] Engine(minicpm-2b) at full width on the card")
     K.gather_chunks.launches = K.scatter_chunks.launches = 0
     FK.flash_attention.launches = PK.paged_attention.launches = 0
+    DK.decode_scores.launches = DK.decode_values.launches = 0
     full = full_width(say)
     serving = {"flash_attention": FK.flash_attention.launches,
-               "paged_attention": PK.paged_attention.launches}
+               "paged_attention": PK.paged_attention.launches,
+               "decode_attention": DK.decode_scores.launches}
     say(f"  launches on the serving path: {serving}, chunked copy "
         f"{K.gather_chunks.launches} + {K.scatter_chunks.launches}; "
         f"{time.perf_counter() - t0:.2f} s")
@@ -3629,6 +3747,12 @@ def main() -> int:
           "the full-width generate, not once per layer (40)")
     check(serving["paged_attention"] > 0,
           "paged_attention never launched on the serving path")
+    # each decode step once a layer, and the paged check's one call
+    check(DK.decode_scores.launches == DK.decode_values.launches
+          == 40 * (FULL_NEW - 1) + 1,
+          f"decode attention launched {DK.decode_scores.launches} + "
+          f"{DK.decode_values.launches} times in the full-width generate, "
+          f"not once a layer a step ({40 * (FULL_NEW - 1) + 1})")
     launches.update(serving)
 
     # ---- the chaos run, counted from here ---------------------------------
@@ -3843,6 +3967,9 @@ def main() -> int:
                     "src/repro/kernels/flash_attention/kernel.py:65",
                 "paged_attention":
                     "src/repro/kernels/paged_attention/kernel.py:64",
+                "decode_attention": "src/repro/models/attention.py:"
+                                    "decode_attention (plain jnp, no Pallas "
+                                    "kernel)",
                 "flash_attention_bwd": "src/repro/models/attention.py:92"}
     kernels = []
     for name in ("gather_chunks", "scatter_chunks"):
@@ -3858,15 +3985,17 @@ def main() -> int:
             "library_ms": r5["library_ms"], "call_ms": r5["call_ms"],
             "m64": {k: r64[k] for k in ("ms", "call_ms", "plain_ms",
                                         "library_ms", "bound_ms")}})
-    for name in ("flash_attention", "paged_attention"):
+    for name in ("flash_attention", "paged_attention", "decode_attention"):
         r = attn[name]
         keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         if name == "paged_attention":
             keys += ("l2_evicted_ms", "contiguous_sdpa_ms", "split_plan",
                      "sdpa_row_rel_err")
+        if name == "decode_attention":
+            keys += ("call_ms", "passes_ms", "split_plan", "sdpa_row_rel_err")
         extra = {k: r[k] for k in keys[6:]}
-        if name == "paged_attention":
+        if name != "flash_attention":
             extra["max_row_rel_err_bf16"] = attn_err[
                 (name, "bfloat16 row-relative")]
         else:

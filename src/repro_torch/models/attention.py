@@ -4,11 +4,15 @@ over the KV cache, and the cache update.
 
 ``blockwise_attention`` keeps its JAX signature and goes through
 ``kernels/flash_attention/ops.attention``: on the card the hand-written
-kernel, on the CPU its plain version.  ``decode_attention`` stays plain
-torch, as the JAX package computes it outside any Pallas kernel; on a
-mesh whose rules split the cache's sequence (``kv_seq``),
+kernel, on the CPU its plain version.  ``decode_attention`` goes through
+``kernels/decode_attention/ops.attention``: on the card two hand-written
+kernels that read the cache in place over the live positions only (the
+JAX package computes it in plain ``jnp``, outside any Pallas kernel), on
+the CPU its plain version over the whole padded cache.  On a mesh whose
+rules split the cache's sequence (``kv_seq``),
 ``sharded_decode_attention`` is its flash-decoding form, where the JAX
-package's reductions over a sharded sequence become GSPMD's psums.
+package's reductions over a sharded sequence become GSPMD's psums; on
+the card it runs the same two kernels around its all-reduces.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.mesh import all_reduce_axes
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 NEG_INF = -1e30
@@ -123,23 +128,10 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
     q: (B, Hq, 1, D); caches: (B, Hkv, S, D); pos: current position (int).
     Scores are f32 (JAX's ``preferred_element_type``); the probabilities
     are rounded to the cache dtype before the value sum, which is taken
-    in f32, as in the JAX package.
+    in f32, as in the JAX package.  On the card only the positions in
+    ``(pos - window, pos]`` (``[0, pos]`` without a window) are read.
     """
-    B, Hq, _, D = q.shape
-    _, Hkv, S, _ = k_cache.shape
-    group = Hq // Hkv
-    qg = q.reshape(B, Hkv, group, D)
-    scale = 1.0 / math.sqrt(D)
-    s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_cache.float()) * scale
-    kv_pos = torch.arange(S, device=q.device)
-    mask = kv_pos <= pos
-    if window:
-        mask = mask & (kv_pos > pos - window)
-    s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bhkd->bhgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
-    return out.reshape(B, Hq, 1, D).to(q.dtype)
+    return decode_ops.attention(q, k_cache, v_cache, pos, window=window)
 
 
 def sharded_decode_attention(q, k_cache, v_cache, pos, *, offset: int,
@@ -155,7 +147,14 @@ def sharded_decode_attention(q, k_cache, v_cache, pos, *, offset: int,
     and the partial outputs are summed over ``axes``.  Three
     all-reduces: the max, the denominators, the values.  Over one rank
     the share is exactly 1, so the arithmetic is ``decode_attention``'s
-    to the bit."""
+    to the bit.  On the card the rank's live positions, ``[offset,
+    offset + S_loc)`` up to ``pos``, go through ``decode_attention``'s
+    two kernels (``_sharded_live``), so there too one rank gives its
+    bits."""
+    if q.device.type not in ("cpu", "meta"):
+        return _sharded_live(q, k_cache, v_cache,
+                             min(pos - offset + 1, k_cache.shape[2]), mesh,
+                             axes)
     B, Hq, _, D = q.shape
     _, Hkv, S, _ = k_cache.shape
     qg = q.reshape(B, Hkv, Hq // Hkv, D)
@@ -172,6 +171,26 @@ def sharded_decode_attention(q, k_cache, v_cache, pos, *, offset: int,
                        v_cache.float())
     out = all_reduce_axes(out.contiguous(), mesh, axes)
     return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def _sharded_live(q, k_cache, v_cache, live: int, mesh, axes):
+    """``sharded_decode_attention``'s arithmetic over this rank's first
+    ``live`` positions (none when ``live <= 0``: the rank then adds
+    nothing, and still takes part in the three all-reduces)."""
+    B, Hq, _, D = q.shape
+    q = q.contiguous()
+    if live > 0:
+        s = decode_ops.scores(q, k_cache, 0, live - 1)
+        top = s.amax(dim=-1, keepdim=True)
+    else:
+        s = torch.empty((B, Hq, 0), device=q.device)
+        top = torch.full((B, Hq, 1), NEG_INF, device=q.device)
+    p = torch.softmax(s, dim=-1)
+    m = all_reduce_axes(top.clone(), mesh, axes, op=dist.ReduceOp.MAX)
+    mine = torch.exp(s - top).sum(dim=-1, keepdim=True) * torch.exp(top - m)
+    p = p * (mine / all_reduce_axes(mine.clone(), mesh, axes))
+    out = decode_ops.values(p, v_cache, 0, torch.float32)
+    return all_reduce_axes(out, mesh, axes).to(q.dtype)
 
 
 def kv_update(cache, new, pos: int, *, offset: int = 0):

@@ -5,6 +5,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as DK  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 
 
@@ -71,7 +72,8 @@ def test_flash_bwd_wrapper_rejects_cpu_tensors_before_building():
 
 
 @pytest.mark.parametrize("source,signatures", [
-    (FK.SOURCE, FK._SIGNATURES), (FK.BWD_SOURCE, FK._BWD_SIGNATURES)])
+    (FK.SOURCE, FK._SIGNATURES), (FK.BWD_SOURCE, FK._BWD_SIGNATURES),
+    (DK.SOURCE, DK._SIGNATURES)])
 def test_ctypes_signatures_match_the_sources(source, signatures):
     """Each entry point's ctypes argument list has the C function's
     length, pointers where the C side takes pointers: a short list would

@@ -606,6 +606,140 @@ def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                                        device=cuda_device))
 
 
+def _decode_inputs(case, dtype, device, seed):
+    """q (B, Hq, 1, D) and caches (B, Hkv, S, D) of one dtype."""
+    B, Hkv, G, D, S = case[:5]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype)
+               for shape in ((B, Hkv * G, 1, D), (B, Hkv, S, D),
+                             (B, Hkv, S, D)))
+    return q, k, v
+
+
+# (B, Hkv, G, D, S, pos, window): the decode cell (32 sessions, MiniCPM-2B's
+# 36/36 heads of 64, a 4096-position cache) at its first position and at
+# the cache's end, DBRX's 48/8 heads of 128 at the same positions, then
+# odd ones: D 16 and 32, groups of 3, 5 and 20 (idle head rows, three head
+# groups), a live range off the 64-position tile, a sliding window
+DECODE_CASES = [
+    (32, 36, 1, 64, 4096, 1024, 0), (32, 36, 1, 64, 4096, 4095, 0),
+    (8, 8, 6, 128, 4096, 1024, 0), (8, 8, 6, 128, 4096, 4095, 0),
+    (3, 4, 1, 16, 100, 99, 0), (2, 2, 5, 32, 300, 150, 0),
+    (2, 1, 20, 128, 257, 256, 0), (4, 2, 3, 64, 77, 0, 0),
+    (2, 4, 2, 64, 1000, 700, 129), (1, 2, 4, 16, 5000, 4999, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+def test_decode_attention_matches_plain_on_card(cuda_device, case, dtype):
+    """The two kernels over the live positions against the plain decode
+    attention over the whole padded cache (the CPU path, run on the
+    card), with the paged kernel's limits."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.attention import decode_attention
+    q, k, v = _decode_inputs(case, dtype, cuda_device, sum(case))
+    pos, window = case[5:]
+    before = DK.decode_scores.launches, DK.decode_values.launches
+    got = decode_attention(q, k, v, pos, window=window)
+    assert (DK.decode_scores.launches, DK.decode_values.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = decode_attention_ref(q, k, v, pos, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _assert_paged_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [DECODE_CASES[0], DECODE_CASES[3],
+                                  DECODE_CASES[6]], ids=str)
+def test_decode_attention_is_deterministic(cuda_device, case, dtype):
+    """Two calls give the same bits: every sum runs in a fixed order."""
+    from repro_torch.models.attention import decode_attention
+    q, k, v = _decode_inputs(case, dtype, cuda_device, 5)
+    a = decode_attention(q, k, v, case[5])
+    b = decode_attention(q, k, v, case[5])
+    assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [DECODE_CASES[0], DECODE_CASES[2],
+                                  DECODE_CASES[8]], ids=str)
+def test_decode_attention_never_reads_past_the_live_range(cuda_device, case,
+                                                          dtype):
+    """Slots outside the live range (past ``pos``: a previous generation's;
+    before a window) filled with NaN leave the output finite and equal to
+    the clean cache's."""
+    from repro_torch.models.attention import decode_attention
+    q, k, v = _decode_inputs(case, dtype, cuda_device, 6)
+    pos, window = case[5:]
+    lo = max(pos - window + 1, 0) if window else 0
+    clean = decode_attention(q, k, v, pos, window=window)
+    for t in (k, v):
+        t[:, :, pos + 1:] = float("nan")
+        t[:, :, :lo] = float("nan")
+    dirty = decode_attention(q, k, v, pos, window=window)
+    assert bool(torch.isfinite(dirty.float()).all())
+    assert torch.equal(dirty.view(torch.uint8), clean.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [0, 1024, 4095])
+def test_sharded_decode_attention_over_one_rank_is_bit_equal(cuda_device,
+                                                             pos, dtype):
+    """``sharded_decode_attention`` on the 1x1 NCCL mesh, its cache whole
+    on the one rank, gives ``decode_attention``'s bits at the decode
+    cell's shape, as its docstring states."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.attention import (
+        decode_attention, sharded_decode_attention)
+    q, k, v = _decode_inputs(DECODE_CASES[0], dtype, cuda_device, pos)
+    mesh = make_smoke_mesh("cuda")
+    try:
+        got = sharded_decode_attention(q, k, v, pos, offset=0, mesh=mesh,
+                                       axes=("model",))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    want = decode_attention(q, k, v, pos)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_engine_decode_at_full_width_launches_each_kernel_once_a_layer(
+        cuda_device):
+    """MiniCPM-2B at full width in bf16: one ``Engine.decode`` step runs
+    each decode attention kernel once in each of its 40 layers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, extend_caches
+    cfg = get_arch("minicpm-2b")
+    B, L = 2, 64
+    eng = Engine(cfg, ShapeSpec("serve", L + 4, B, "decode"),
+                 M.init_params(cfg, 3))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, L), dtype=np.int32))
+    with torch.no_grad():
+        logits, caches = eng.prefill({"tokens": toks})
+        caches = extend_caches(cfg, caches, L + 4)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        for pos in range(L, L + 3):
+            before = DK.decode_scores.launches, DK.decode_values.launches
+            logits, caches = eng.decode(caches, tok, pos)
+            assert (DK.decode_scores.launches - before[0],
+                    DK.decode_values.launches - before[1]) == (40, 40)
+            assert bool(torch.isfinite(logits).all())
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["minicpm-2b", "gemma3-27b"])
 def test_engine_on_card_matches_cpu(cuda_device, arch):
